@@ -1,0 +1,15 @@
+"""The two-phase bounded-variable revised simplex (primal engine)."""
+
+from relp_tpu_torch.simplex.driver import (
+    GeneralFormResult,
+    SimplexResult,
+    solve_computational_form,
+    solve_general_form,
+)
+
+__all__ = [
+    "GeneralFormResult",
+    "SimplexResult",
+    "solve_computational_form",
+    "solve_general_form",
+]
