@@ -1,9 +1,11 @@
 """relp_tpu_torch — the relp_tpu linear programming solver on PyTorch/CUDA.
 
 A port of the JAX package ``relp_tpu`` (which stays the reference) to
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.  This slice runs
-the primal main path: MPS file → GeneralForm → presolve → computational
-form → two-phase bounded-variable revised simplex → named Solution.
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.  It runs the
+primal path with the JAX package's primal options: MPS file → GeneralForm →
+presolve → computational form → two-phase bounded-variable revised simplex
+(dense, ELL or hybrid operator; dense or eta inverse) → named Solution.
+``python -m relp_tpu_torch.probe`` checks a machine's CUDA toolchain.
 
 The device is explicit: ``api.solve(path, config, device=None)`` with
 ``None`` meaning the ``RELP_TPU_TORCH_DEVICE`` environment variable
@@ -13,7 +15,7 @@ Layout (module names mirror the JAX package's):
     model/      problem representations (GeneralForm, elements, Solution)
     io/         MPS parsing, conversion and writing
     presolve/   presolving rules + postsolve reconstruction
-    models/     LP model families (network flows)
+    models/     LP model families (network flows, the dense LP)
     simplex/    the primal engine (core) and its host driver
     ops/        constraint-matrix operators, CUDA kernels, linear algebra
     csrc/       CUDA C++ sources of the kernels (built at first use)

@@ -1,9 +1,11 @@
 """Command-line interface:  python -m relp_tpu_torch <problem_file>
 
 import → GeneralForm → presolve → primal simplex on the device → print the
-solution, as ``python -m relp_tpu`` does.  The device comes from
-``RELP_TPU_TORCH_DEVICE`` (default ``cuda``).  Flags of the JAX package's
-CLI whose engines are not ported yet exit with a message saying so.
+solution, as ``python -m relp_tpu`` does, with its primal flags
+(``--basis-in`` warm starts, ``--write-mps`` export, ``--perturb``,
+``--inverse``).  The device comes from ``RELP_TPU_TORCH_DEVICE`` (default
+``cuda``).  Flags of the JAX package's CLI whose engines are not ported yet
+exit with a message saying so.
 """
 
 from __future__ import annotations
@@ -19,11 +21,11 @@ from relp_tpu_torch.utils.config import SolverConfig
 
 # flags of `python -m relp_tpu` that this package does not carry yet
 NOT_PORTED = {
-    "--verify", "--basis-in", "--write-mps", "--algorithm", "--no-crossover",
+    "--verify", "--algorithm", "--no-crossover",
     "--pdlp-matrix", "--pdlp-variant", "--pdlp-precision", "--pdlp-refine",
     "--pdlp-accept", "--ipm-tol", "--ipm-accept", "--ipm-max-iter",
-    "--ipm-ladder", "--perturb", "--mip", "--mip-cuts", "--mip-branch",
-    "--mesh-cols", "--inverse", "--xl-engine", "--dual-pricing", "--ranging",
+    "--ipm-ladder", "--mip", "--mip-cuts", "--mip-branch",
+    "--mesh-cols", "--xl-engine", "--dual-pricing", "--ranging",
 }
 
 
@@ -42,9 +44,21 @@ def main(argv=None) -> int:
     ap.add_argument("--refactor", type=int, default=64, help="refactorization period")
     ap.add_argument("-q", "--quiet", action="store_true", help="objective only")
     ap.add_argument("--json", action="store_true", help="machine-readable output")
+    ap.add_argument("--basis-in", metavar="FILE", help="warm start from an MPS basis file")
+    ap.add_argument(
+        "--write-mps", metavar="FILE", help="export the (presolved) problem and exit"
+    )
+    ap.add_argument(
+        "--perturb", type=float, default=0.0, metavar="EPS",
+        help="anti-degeneracy bound perturbation (e.g. 1e-7; 0 = off)",
+    )
     ap.add_argument(
         "--matrix-format", choices=["auto", "dense", "ell", "hybrid"],
         default="auto", help="device layout of A (auto picks by size/sparsity)",
+    )
+    ap.add_argument(
+        "--inverse", choices=["dense", "eta"], default="dense",
+        help="basis-inverse backend (eta = block product-form, large m)",
     )
     args, extra = ap.parse_known_args(argv)
     for token in extra:
@@ -62,13 +76,35 @@ def main(argv=None) -> int:
         pricing=args.pricing,
         refactor_period=args.refactor,
         matrix_format=args.matrix_format,
+        inverse=args.inverse,
+        perturb=args.perturb,
     )
 
     t0 = time.perf_counter()
     try:
-        from relp_tpu_torch.api import solve
+        from relp_tpu_torch.io import import_lp
 
-        res = solve(args.problem_file, config)
+        general = import_lp(args.problem_file)
+        if args.write_mps:
+            if config.presolve:
+                from relp_tpu_torch.presolve.engine import presolve
+
+                presolve(general)
+            from relp_tpu_torch.io.mps_write import export_mps
+
+            export_mps(general, args.write_mps)
+            print(f"wrote {args.write_mps}", file=sys.stderr)
+            return 0
+
+        initial_basis = None
+        if args.basis_in:
+            from relp_tpu_torch.io.basis_file import import_basis
+
+            initial_basis = import_basis(args.basis_in)
+
+        from relp_tpu_torch.simplex.driver import solve_general_form
+
+        res = solve_general_form(general, config, initial_basis=initial_basis)
     except (OSError, ImportError_) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -3,11 +3,13 @@
 // Both kernels compute one K-deep gather-reduction per output element over
 // an ELL pool stored K-major (slot k of element j at data[k * n + j]):
 //
-//   ell_price:  out[j] = c[j] - sum_k data[k,j] * y[idx[k,j]]   (c given)
-//               out[j] =        sum_k data[k,j] * y[idx[k,j]]   (c == NULL)
-//     over the column pool: pricing d = c - A^T pi, and the devex pivot
-//     row alpha = A^T B^-1[r,:].  Replaces brick_pricing_pallas
-//     (relp_tpu/ops/pallas_kernels.py).
+//   ell_price:  out[j] = c[j] - sum_k data[k,j0+j] * y[idx[k,j0+j]]   (c given)
+//               out[j] =        sum_k data[k,j0+j] * y[idx[k,j0+j]]   (c == NULL)
+//     for j in a column window [j0, j0 + w) of the n-column pool (c holds
+//     the window's w entries): pricing d = c - A^T pi, the devex pivot row
+//     alpha = A^T B^-1[r,:], and with a window the one block of columns
+//     that partial pricing scans, with no copy of a strided slice.
+//     Replaces brick_pricing_pallas (relp_tpu/ops/pallas_kernels.py).
 //   ell_spmv:   y[i] = sum_k rdata[k,i] * x[rcols[k,i]]
 //     over the row-major twin: A x.  Replaces brick_spmv_pallas
 //     (relp_tpu/ops/pallas_kernels.py).
@@ -44,13 +46,14 @@ __global__ void ell_gather_sum_kernel(const T* __restrict__ data,
                                       const int32_t* __restrict__ idx,
                                       const T* __restrict__ y,
                                       const T* __restrict__ c,
-                                      T* __restrict__ out, int64_t n, int K) {
+                                      T* __restrict__ out, int64_t n,
+                                      int64_t j0, int64_t w, int K) {
   const int64_t j =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= n) return;
+  if (j >= w) return;
   T acc = T(0);
   for (int k = 0; k < K; ++k) {
-    const int64_t s = static_cast<int64_t>(k) * n + j;
+    const int64_t s = static_cast<int64_t>(k) * n + j0 + j;
     acc += data[s] * __ldg(y + idx[s]);
   }
   out[j] = (c != nullptr) ? c[j] - acc : acc;
@@ -58,14 +61,14 @@ __global__ void ell_gather_sum_kernel(const T* __restrict__ data,
 
 template <typename T>
 int launch(const void* data, const void* idx, const void* y, const void* c,
-           void* out, int64_t n, int K, void* stream) {
-  if (n > 0) {
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
+           void* out, int64_t n, int64_t j0, int64_t w, int K, void* stream) {
+  if (w > 0) {
+    const int64_t blocks = (w + kThreads - 1) / kThreads;
     ell_gather_sum_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(data), static_cast<const int32_t*>(idx),
         static_cast<const T*>(y), static_cast<const T*>(c),
-        static_cast<T*>(out), n, K);
+        static_cast<T*>(out), n, j0, w, K);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -75,25 +78,25 @@ int launch(const void* data, const void* idx, const void* y, const void* c,
 extern "C" {
 
 int relp_ell_price_f32(const void* data, const void* rows, const void* y,
-                       const void* c, void* out, int64_t n, int K,
-                       void* stream) {
-  return launch<float>(data, rows, y, c, out, n, K, stream);
+                       const void* c, void* out, int64_t n, int64_t j0,
+                       int64_t w, int K, void* stream) {
+  return launch<float>(data, rows, y, c, out, n, j0, w, K, stream);
 }
 
 int relp_ell_price_f64(const void* data, const void* rows, const void* y,
-                       const void* c, void* out, int64_t n, int K,
-                       void* stream) {
-  return launch<double>(data, rows, y, c, out, n, K, stream);
+                       const void* c, void* out, int64_t n, int64_t j0,
+                       int64_t w, int K, void* stream) {
+  return launch<double>(data, rows, y, c, out, n, j0, w, K, stream);
 }
 
 int relp_ell_spmv_f32(const void* rdata, const void* rcols, const void* x,
                       void* y, int64_t m, int K, void* stream) {
-  return launch<float>(rdata, rcols, x, nullptr, y, m, K, stream);
+  return launch<float>(rdata, rcols, x, nullptr, y, m, 0, m, K, stream);
 }
 
 int relp_ell_spmv_f64(const void* rdata, const void* rcols, const void* x,
                       void* y, int64_t m, int K, void* stream) {
-  return launch<double>(rdata, rcols, x, nullptr, y, m, K, stream);
+  return launch<double>(rdata, rcols, x, nullptr, y, m, 0, m, K, stream);
 }
 
 }  // extern "C"

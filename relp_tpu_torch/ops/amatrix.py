@@ -2,10 +2,15 @@
 
 Three interchangeable operator classes hold their tensors on one explicit
 ``torch.device`` and offer the engine one small interface (``matvec``,
-``rmatvec``, ``rmatvec32``, ``price``, ``price32``, ``col``, ``ftran``,
-``col_dot``, ``entries``, ``cols_matrix``), as in ``relp_tpu/ops/amatrix.py``:
+``rmatvec``, ``rmatvec32``, ``rmatvec32_block``, ``price``, ``price32``,
+``col``, ``ftran``, ``col_dot``, ``entries``, ``cols_matrix``), as in
+``relp_tpu/ops/amatrix.py``:
 
-- :class:`DenseMatrix` — padded f64 A plus an optional f32 shadow.
+- :class:`DenseMatrix` — padded f64 A plus an optional f32 shadow.  Pricing,
+  ``Aᵀv`` and the devex row go through ``dense_price``
+  (ops/dense_kernels.py); A·x, FTRAN and the column gathers stay
+  ``torch.matmul``/indexing, as they are plain XLA products in the JAX
+  package.
 - :class:`EllMatrix` — ELL: per column up to K nonzeros, padded with
   (row 0, value 0), plus the same matrix per row (the row-major twin).
   Both pools are stored K-major (``[K, n_pad]`` and ``[Kr, m_pad]``,
@@ -14,12 +19,16 @@ Three interchangeable operator classes hold their tensors on one explicit
   Pricing and the devex row go through ``ell_price``, A·x through
   ``ell_spmv`` (ops/sparse_kernels.py).
 - :class:`HybridMatrix` — ELL for the sparse columns plus a small dense
-  block of "spill" columns whose fill would blow up the ELL pad.
+  block of "spill" columns whose fill would blow up the ELL pad; the block
+  prices through ``dense_price``.
 
 ``price(c, π)`` is ``c − πᵀA`` with the subtraction fused into the kernel;
-the JAX package writes it as ``c − rmatvec(π)``.  Indices that select one
-column or row (``q``) may be 0-dim tensors, so no value has to leave the
-device to pick it.
+the JAX package writes it as ``c − rmatvec(π)``.  ``rmatvec32_block`` and
+``price32`` with ``bstart``/``bsize`` price one column window ``[bstart,
+bstart+bsize)`` (partial pricing; ``c32`` then holds the window's entries),
+with the window's bounds as host ints.
+Indices that select one column or row (``q``) may be 0-dim tensors, so no
+value has to leave the device to pick it.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from relp_tpu_torch.ops.dense_kernels import dense_price
 from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_spmv
 
 
@@ -38,11 +48,12 @@ def _sel(t: torch.Tensor, dim: int, q) -> torch.Tensor:
 
 
 class DenseMatrix:
-    """Dense padded A (f64) with an optional f32 shadow for pricing."""
+    """Dense padded A (f64, row-major) with an optional f32 shadow for
+    pricing."""
 
     def __init__(self, A: torch.Tensor, A32: torch.Tensor | None = None):
-        self.A = A
-        self.A32 = A32
+        self.A = A.contiguous()
+        self.A32 = None if A32 is None else A32.contiguous()
 
     @property
     def shape(self):
@@ -65,16 +76,19 @@ class DenseMatrix:
         return self.A @ x
 
     def rmatvec(self, pi):
-        return pi @ self.A
+        return dense_price(self.A, pi)
 
     def rmatvec32(self, v32):
-        return v32 @ self.A32
+        return dense_price(self.A32, v32)
+
+    def rmatvec32_block(self, v32, bstart: int, bsize: int):
+        return dense_price(self.A32, v32, j0=bstart, w=bsize)
 
     def price(self, c, pi):
-        return c - pi @ self.A
+        return dense_price(self.A, pi, c)
 
-    def price32(self, c32, v32):
-        return c32 - v32 @ self.A32
+    def price32(self, c32, v32, bstart: int = 0, bsize: int | None = None):
+        return dense_price(self.A32, v32, c32, bstart, bsize)
 
     def col(self, q):
         return _sel(self.A, 1, q)
@@ -156,11 +170,14 @@ class EllMatrix:
     def rmatvec32(self, v32):
         return ell_price(self.data32_t, self.rows_t, v32)
 
+    def rmatvec32_block(self, v32, bstart: int, bsize: int):
+        return ell_price(self.data32_t, self.rows_t, v32, j0=bstart, w=bsize)
+
     def price(self, c, pi):
         return ell_price(self.data_t, self.rows_t, pi, c)
 
-    def price32(self, c32, v32):
-        return ell_price(self.data32_t, self.rows_t, v32, c32)
+    def price32(self, c32, v32, bstart: int = 0, bsize: int | None = None):
+        return ell_price(self.data32_t, self.rows_t, v32, c32, bstart, bsize)
 
     def _col_slots(self, q):
         return _sel(self.rows_t, 1, q).long(), _sel(self.data_t, 1, q)
@@ -194,17 +211,21 @@ class EllMatrix:
 
 class HybridMatrix:
     """ELL for the sparse columns plus a dense ``(m_pad, d_pad)`` block ``D``
-    of spill columns.  ``spill_idx[d_pad]`` maps slot → column (padded slots
-    have zero columns), ``spill_pos[n_pad]`` maps column → slot or -1.  The
-    dense block's products are plain ``torch.matmul``, as they are plain XLA
-    products in the JAX package."""
+    of spill columns.  ``spill_idx[d_pad]`` maps slot → column (the real
+    spill columns first, in ascending order; padded slots have zero
+    columns), ``spill_pos[n_pad]`` maps column → slot or -1.  The dense
+    block prices through ``dense_price``; its other products are plain
+    ``torch.matmul``, as they are plain XLA products in the JAX package."""
 
     def __init__(self, ell: EllMatrix, D, spill_idx, spill_pos, D32=None):
         self.ell = ell
-        self.D = D
+        self.D = D.contiguous()
         self.spill_idx = spill_idx
         self.spill_pos = spill_pos
-        self.D32 = D32
+        self.D32 = None if D32 is None else D32.contiguous()
+        # host copy of the real spill columns (ascending): the slots of a
+        # column window are one contiguous slot range
+        self._spill_cols = spill_idx[: int((spill_pos >= 0).sum())].cpu().numpy()
 
     @property
     def shape(self):
@@ -233,17 +254,33 @@ class HybridMatrix:
         return self.ell.matvec(x) + self.D @ x.index_select(0, self.spill_idx)
 
     def rmatvec(self, pi):
-        return self.ell.rmatvec(pi).index_add_(0, self.spill_idx, pi @ self.D)
+        return self.ell.rmatvec(pi).index_add_(0, self.spill_idx, dense_price(self.D, pi))
 
     def rmatvec32(self, v32):
-        return self.ell.rmatvec32(v32).index_add_(0, self.spill_idx, v32 @ self.D32)
+        return self.ell.rmatvec32(v32).index_add_(
+            0, self.spill_idx, dense_price(self.D32, v32))
 
     def price(self, c, pi):
-        return self.ell.price(c, pi).index_add_(0, self.spill_idx, pi @ self.D, alpha=-1)
+        return self.ell.price(c, pi).index_add_(
+            0, self.spill_idx, dense_price(self.D, pi), alpha=-1)
 
-    def price32(self, c32, v32):
-        return self.ell.price32(c32, v32).index_add_(
-            0, self.spill_idx, v32 @ self.D32, alpha=-1)
+    def _add_spill_window(self, out, v32, bstart, bsize, alpha):
+        """``out[spill − bstart] += alpha·(v32ᵀD)`` for the spill columns
+        inside the window: one ``dense_price`` over their slot range."""
+        s0, s1 = (int(k) for k in np.searchsorted(self._spill_cols, [bstart, bstart + bsize]))
+        if s1 > s0:
+            out.index_add_(0, self.spill_idx[s0:s1] - bstart,
+                           dense_price(self.D32, v32, j0=s0, w=s1 - s0), alpha=alpha)
+        return out
+
+    def rmatvec32_block(self, v32, bstart: int, bsize: int):
+        return self._add_spill_window(
+            self.ell.rmatvec32_block(v32, bstart, bsize), v32, bstart, bsize, 1)
+
+    def price32(self, c32, v32, bstart: int = 0, bsize: int | None = None):
+        bsize = self.shape[1] - bstart if bsize is None else bsize
+        return self._add_spill_window(
+            self.ell.price32(c32, v32, bstart, bsize), v32, bstart, bsize, -1)
 
     def col(self, q):
         return self.ell.col(q) + self._spill_col(q)

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (``relp_tpu_torch/csrc``).
 
-The sources are compiled at first use, on the machine with the card, by
-``nvcc`` into a shared library with a plain C interface, which is loaded
-with ``ctypes``.  The library lands in ``relp_tpu_torch/_build/`` under a
-name that carries a hash of the sources, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Nothing here runs at import.
+Every ``csrc/*.cu`` is compiled at first use, on the machine with the card,
+by ``nvcc`` (one process per source, all started together, then one link)
+into a single shared library with a plain C interface, which is loaded
+with ``ctypes``; :data:`SIGNATURES` binds every kernel's entry points.  The
+library lands in ``relp_tpu_torch/_build/`` under a name that carries a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -23,11 +26,26 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
-_P = ctypes.c_void_p
-_PRICE_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P]
-_SPMV_ARGS = [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P]
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# entry point -> argument types (each returns its cudaError_t as an int)
+SIGNATURES = {
+    # sparse_kernels.cu: data, idx, y, c, out, n, j0, w, K, stream
+    "relp_ell_price_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P],
+    "relp_ell_price_f64": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P],
+    # sparse_kernels.cu: rdata, rcols, x, y, m, K, stream
+    "relp_ell_spmv_f32": [_P, _P, _P, _P, _I64, _I32, _P],
+    "relp_ell_spmv_f64": [_P, _P, _P, _P, _I64, _I32, _P],
+    # dense_kernels.cu: A, v, c, out, partial, m, lda, j0, w, slices,
+    # rows_per_slice, stream
+    "relp_dense_price_f32": [_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P],
+    "relp_dense_price_f64": [_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P],
+    # probe_kernels.cu: x, out, n, stream
+    "relp_probe_scale_f32": [_P, _P, _I64, _P],
+    "relp_probe_scale_f64": [_P, _P, _I64, _P],
+}
 
 
 @dataclass
@@ -35,6 +53,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_s: float  # seconds spent compiling in this process (0 if cached)
+    log: str        # nvcc's output (ptxas register and spill lines); "" if cached
 
 
 def _nvcc() -> str:
@@ -57,37 +76,54 @@ def _sources() -> list[Path]:
     return srcs
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _build(srcs: list[Path], lib_path: Path) -> str:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+        tmp_lib = Path(tmp) / lib_path.name
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp_lib), *map(str, objs)]])
+        os.replace(tmp_lib, lib_path)
+    return log
+
+
 @functools.cache
-def load_sparse_kernels() -> KernelLibrary:
-    """Build (if needed) and load the sparse-operator kernels."""
+def load_kernels() -> KernelLibrary:
+    """Build (if needed) and load every kernel of ``csrc/``."""
     srcs = _sources()
     digest = hashlib.sha256()
     for s in srcs:
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"libsparse_kernels_{digest.hexdigest()[:16]}.so"
-    build_s = 0.0
+    digest.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    lib_path = BUILD_DIR / f"librelp_kernels_{digest.hexdigest()[:16]}.so"
+    build_s, log = 0.0, ""
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(srcs, lib_path)
         build_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("relp_ell_price_f32", "relp_ell_price_f64"):
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _PRICE_ARGS
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("relp_ell_spmv_f32", "relp_ell_spmv_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = _SPMV_ARGS
-        fn.restype = ctypes.c_int
-    return KernelLibrary(lib=lib, path=lib_path, build_s=build_s)
+    return KernelLibrary(lib=lib, path=lib_path, build_s=build_s, log=log)
+
+
+def raise_on(name: str, err: int) -> None:
+    """Raise if a kernel's entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -14,6 +14,8 @@ cache; gather, product, sum and subtraction are one launch.
 An ELL pool here is K-major: ``data_t[K, n]`` values and ``idx_t[K, n]``
 int32 indices, padding slots holding (index 0, value 0).  Every index must
 lie inside the gathered vector; the operator constructors check that once.
+``ell_price`` prices a column window ``[j0, j0+w)`` of the pool in place
+(partial pricing), with no copy of the strided slice.
 
 A wrapper given CPU tensors computes the plain PyTorch version.  Given CUDA
 tensors it launches the kernel or raises: there is no fallback.  Each
@@ -30,8 +32,12 @@ _FLOATS = (torch.float32, torch.float64)
 
 
 def ell_price_plain(data_t: torch.Tensor, idx_t: torch.Tensor, y: torch.Tensor,
-                    c: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``c − Σ_k data_t[k]·y[idx_t[k]]`` (or the sum alone when ``c`` is None)."""
+                    c: Optional[torch.Tensor] = None, j0: int = 0,
+                    w: Optional[int] = None) -> torch.Tensor:
+    """``c − Σ_k data_t[k]·y[idx_t[k]]`` over the columns ``[j0, j0+w)``
+    (or the sum alone when ``c`` is None)."""
+    w = data_t.shape[1] - j0 if w is None else w
+    data_t, idx_t = data_t[:, j0:j0 + w], idx_t[:, j0:j0 + w]
     acc = (data_t * y[idx_t]).sum(0)
     return acc if c is None else c - acc
 
@@ -42,7 +48,7 @@ def ell_spmv_plain(rdata_t: torch.Tensor, rcols_t: torch.Tensor,
     return (rdata_t * x[rcols_t]).sum(0)
 
 
-def _check(name, data_t, idx_t, vec, c=None):
+def _check(name, data_t, idx_t, vec, c=None, c_len=None):
     tensors = [data_t, idx_t, vec] + ([] if c is None else [c])
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -60,41 +66,49 @@ def _check(name, data_t, idx_t, vec, c=None):
         )
     if data_t.shape[0] < 1:
         raise ValueError(f"{name}: the pool needs K >= 1 slots")
-    if vec.dim() != 1 or (c is not None and c.shape != (data_t.shape[1],)):
+    c_len = data_t.shape[1] if c_len is None else c_len
+    if vec.dim() != 1 or (c is not None and c.shape != (c_len,)):
         raise ValueError(f"{name}: bad vector shapes")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all tensors must be contiguous")
     return devices.pop()
 
 
-def _raise_on(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+def window(n: int, j0: int, w: Optional[int]) -> int:
+    """Width of the column window ``[j0, j0+w)`` of an ``n``-column pool
+    (``w=None``: to the end); raises when it does not fit."""
+    w = n - j0 if w is None else w
+    if j0 < 0 or w < 0 or j0 + w > n:
+        raise ValueError(f"column window [{j0}, {j0 + w}) outside [0, {n})")
+    return w
 
 
 def ell_price(data_t: torch.Tensor, idx_t: torch.Tensor, y: torch.Tensor,
-              c: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Pricing over a K-major ELL column pool: ``out[j] = c[j] − Σ_k
-    data_t[k,j]·y[idx_t[k,j]]``; without ``c`` the sum alone (the devex
-    pivot row).  float32 or float64."""
-    dev = _check("ell_price", data_t, idx_t, y, c)
+              c: Optional[torch.Tensor] = None, j0: int = 0,
+              w: Optional[int] = None) -> torch.Tensor:
+    """Pricing over the column window ``[j0, j0+w)`` (default: all) of a
+    K-major ELL column pool: ``out[j] = c[j] − Σ_k data_t[k,j0+j]·
+    y[idx_t[k,j0+j]]`` with ``c`` of length ``w``; without ``c`` the sum
+    alone (the devex pivot row).  float32 or float64."""
+    w = window(data_t.shape[1] if data_t.dim() == 2 else 0, j0, w)
+    dev = _check("ell_price", data_t, idx_t, y, c, c_len=w)
     if dev.type == "cpu":
-        return ell_price_plain(data_t, idx_t, y, c)
+        return ell_price_plain(data_t, idx_t, y, c, j0, w)
     if dev.type != "cuda":
         raise ValueError(f"ell_price: unsupported device {dev}")
-    from relp_tpu_torch.ops.cuda_build import load_sparse_kernels
+    from relp_tpu_torch.ops.cuda_build import load_kernels, raise_on
 
-    lib = load_sparse_kernels().lib
+    lib = load_kernels().lib
     K, n = data_t.shape
-    out = torch.empty(n, dtype=data_t.dtype, device=dev)
+    out = torch.empty(w, dtype=data_t.dtype, device=dev)
     fn = lib.relp_ell_price_f32 if data_t.dtype == torch.float32 else lib.relp_ell_price_f64
     with torch.cuda.device(dev):
         err = fn(
             data_t.data_ptr(), idx_t.data_ptr(), y.data_ptr(),
-            None if c is None else c.data_ptr(), out.data_ptr(), n, K,
+            None if c is None else c.data_ptr(), out.data_ptr(), n, j0, w, K,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on("ell_price", err)
+    raise_on("ell_price", err)
     ell_price.launches += 1
     return out
 
@@ -111,9 +125,9 @@ def ell_spmv(rdata_t: torch.Tensor, rcols_t: torch.Tensor,
         return ell_spmv_plain(rdata_t, rcols_t, x)
     if dev.type != "cuda":
         raise ValueError(f"ell_spmv: unsupported device {dev}")
-    from relp_tpu_torch.ops.cuda_build import load_sparse_kernels
+    from relp_tpu_torch.ops.cuda_build import load_kernels, raise_on
 
-    lib = load_sparse_kernels().lib
+    lib = load_kernels().lib
     K, m = rdata_t.shape
     out = torch.empty(m, dtype=rdata_t.dtype, device=dev)
     fn = lib.relp_ell_spmv_f32 if rdata_t.dtype == torch.float32 else lib.relp_ell_spmv_f64
@@ -122,7 +136,7 @@ def ell_spmv(rdata_t: torch.Tensor, rcols_t: torch.Tensor,
             rdata_t.data_ptr(), rcols_t.data_ptr(), x.data_ptr(),
             out.data_ptr(), m, K, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on("ell_spmv", err)
+    raise_on("ell_spmv", err)
     ell_spmv.launches += 1
     return out
 

@@ -1,26 +1,41 @@
-"""The two-phase bounded-variable revised simplex core (primal, dense inverse).
+"""The two-phase bounded-variable revised simplex core (primal).
 
 Port of ``relp_tpu/simplex/core.py::solve_core`` for ``algorithm="primal"``
-and ``inverse="dense"``.  The arithmetic of one iteration is the JAX loop
+with both inverse backends.  The arithmetic of one iteration is the JAX loop
 body's, in the same order: devex/Dantzig/Bland pricing over the whole column
-pool (f32 scan with f64 confirmation under ``mixed_pricing``), FTRAN against
-the dense B⁻¹, the Harris two-pass ratio test with bound flips, the rank-1
-update of B⁻¹ with the incremental π, and the devex weight update.  The
-phase, status and pivot choices stay on the device as ``torch.where``
-selects, so the step is straight-line.
+pool or one block of it (f32 scan with f64 confirmation under
+``mixed_pricing``), FTRAN against the basis inverse, the Harris two-pass
+ratio test with bound flips, the update of the inverse with the incremental
+π, and the devex weight update.  The phase, status and pivot choices stay
+on the device as ``torch.where`` selects, so the step is straight-line.
+
+Two inverse backends (``cfg.inverse``):
+
+- ``"dense"``: the explicit B⁻¹, updated IN PLACE by one rank-1 step per
+  pivot.
+- ``"eta"``: the block product form.  Pivots compose into a pending block
+  ``etaZ[m, T]`` / ``etaR[T]`` with the current inverse
+  ``(I + etaZ·Pᵀ)·B⁻¹`` (P's columns ``e_{etaR[i]}``), folded into B⁻¹ by
+  one (m,T)@(T,m) product once ``T = cfg.eta_block`` pivots are pending.
 
 The loop has the shape of the JAX package's externally refactorized form
 (``_make_primal_kernel(external=True)``): the step never refactorizes; the
 HOST runs :meth:`PrimalKernel.refactor` when ``since_refactor`` reaches
-``refactor_period`` and :meth:`PrimalKernel.repair` when the step asks for
-it.  The numerical watchdog is evaluated at the end of each step, on the
-state the next iteration starts from, so a refactorization it asks for runs
-before the next pivot, as in the JAX package's in-loop form.
+``refactor_period``, :meth:`PrimalKernel.fold_etas` when the eta block is
+full, and :meth:`PrimalKernel.repair` when the step asks for it.  The
+numerical watchdog is evaluated at the end of each step, on the state the
+next iteration starts from, so a refactorization it asks for runs before
+the next pivot, as in the JAX package's in-loop form.
 
 Host reads per iteration: one read of the packed loop flags (running,
-refactor due, repair due) and, under ``mixed_pricing``, one read of the f64
-confirmation of the f32 candidate.  A refactorization adds one or two
-(the polish residual check, the LU's minimum pivot).
+refactor due, repair due, fold due) and, under ``mixed_pricing``, one read
+of the f64 confirmation of the f32 candidate (of the block's candidate
+under partial pricing; a block without a confirmed candidate falls back to
+the full mixed pass and its own confirmation).  A refactorization adds one
+or two (the polish residual check, the LU's minimum pivot).  The host
+counts the iterations itself, so the partial-pricing block, the periodic
+invariant check (``check_every_n``) and the row of the per-iteration trace
+(``trace_iters``, written on the device) need no read.
 
 Artificial variables occupy the virtual columns ``[n, n+m)``; they are
 never materialized: artificial column ``i`` is ``art_sign[i]·e_i``.
@@ -39,6 +54,7 @@ from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.utils.config import SolverConfig
 
 F64 = torch.float64
+F32 = torch.float32
 I64 = torch.int64
 INF = float("inf")
 
@@ -50,7 +66,7 @@ class State:
     basis: torch.Tensor           # i64[m] — column index in [0, n+m) per row
     vstat: torch.Tensor           # i64[n+m]
     xB: torch.Tensor              # f64[m] — values of the basic variables
-    Binv: torch.Tensor            # f64[m, m] — updated in place per pivot
+    Binv: torch.Tensor            # f64[m, m] — updated in place
     pi: torch.Tensor              # f64[m] — simplex multipliers, incremental
     art_sign: torch.Tensor        # f64[m]
     phase: torch.Tensor           # i64 scalar: 1 or 2
@@ -62,6 +78,11 @@ class State:
     repairs: torch.Tensor         # i64 — singular-basis repairs performed
     w: torch.Tensor               # f64[n] — devex reference weights
     broken: torch.Tensor          # bool — the watchdog's verdict on this state
+    # pending eta block in composed form (inverse="eta"; None otherwise):
+    # current B⁻¹ = (I + etaZ·Pᵀ)·Binv, P's columns e_{etaR[i]}
+    etaZ: Optional[torch.Tensor] = None       # f64[m, T]
+    etaR: Optional[torch.Tensor] = None       # i64[T]
+    eta_count: Optional[torch.Tensor] = None  # i64 — live pending etas
 
 
 class SolveOutput(NamedTuple):
@@ -76,6 +97,11 @@ class SolveOutput(NamedTuple):
     obj: torch.Tensor       # f64 — c @ x in the solver's (scaled, min) space
     art_sign: torch.Tensor  # f64[m]
     host_reads: int         # device-to-host reads made by the loop
+    # f32[it, 8] — one row per iteration (cfg.trace_iters; zero rows when
+    # off): [phase, cB·xB, art_mass, d_q, theta, events, q, r] with events =
+    # pivot | 2·flip | 4·fresh inverse | 8·Bland, the JAX package's columns
+    trace: torch.Tensor
+    viol: torch.Tensor      # f64 — worst periodic-invariant violation (0 if off)
 
 
 def _nonbasic_values(vstat, lb_tot, ub_tot):
@@ -97,8 +123,12 @@ def _put(x, i, v):
 
 class PrimalKernel:
     """The primal engine over one fixed, padded problem: :meth:`watchdog`,
-    :meth:`step`, :meth:`refactor`, :meth:`repair`.  ``A`` carries its f32
-    shadow when the config prices in f32."""
+    :meth:`step`, :meth:`refactor`, :meth:`fold_etas`, :meth:`repair`.
+    ``A`` carries its f32 shadow when the config prices in f32.
+
+    Besides the problem it holds the loop's host-side counters: the number
+    of steps taken (``steps``, equal to the state's ``it``), the host reads,
+    the periodic check's worst violation and the trace buffers."""
 
     def __init__(self, A, b, c, lb, ub, cfg: SolverConfig, max_iter: int):
         self.A, self.b, self.c, self.lb, self.ub = A, b, c, lb, ub
@@ -112,7 +142,18 @@ class PrimalKernel:
         self.can_enter = lb < ub                    # fixed + padded columns never enter
         self.col_ids = torch.arange(self.n, device=self.dev)
         self.rows_m = torch.arange(self.m, device=self.dev)
+        self.use_eta = cfg.inverse == "eta"
+        # partial pricing needs the f32 scan and equal blocks (core.py:409-411)
+        self.use_blocks = (cfg.price_blocks > 1 and cfg.mixed_pricing
+                           and self.n % cfg.price_blocks == 0)
+        self.steps = 0
         self.host_reads = 0
+        self.viol = torch.zeros((), dtype=F64, device=self.dev)
+        # trace rows land in buffers of trace_capacity rows, a new buffer
+        # once one is full, so a solve of any length keeps every row
+        self.trace_cap = cfg.trace_capacity if cfg.trace_iters else 0
+        self._trace_full: list[torch.Tensor] = []
+        self._trace_buf = torch.zeros((self.trace_cap, 8), dtype=F32, device=self.dev)
 
     def _read(self, t: torch.Tensor):
         """Bring a small tensor to the host (one synchronisation)."""
@@ -121,6 +162,17 @@ class PrimalKernel:
 
     def art_mass(self, s: State):
         return torch.where(s.basis >= self.n, s.xB.abs(), 0.0).sum()
+
+    def eta0(self) -> dict:
+        """An empty pending eta block (nothing for the dense inverse)."""
+        if not self.use_eta:
+            return {}
+        T = self.cfg.eta_block
+        return dict(
+            etaZ=torch.zeros((self.m, T), dtype=F64, device=self.dev),
+            etaR=torch.zeros(T, dtype=I64, device=self.dev),
+            eta_count=torch.zeros((), dtype=I64, device=self.dev),
+        )
 
     def basis_matrix(self, basis, art_sign):
         """The m×m basis B: structural columns from A, artificial column
@@ -132,12 +184,19 @@ class PrimalKernel:
         art_cols = (self.rows_m[:, None] == k[None, :]) * art_sign[k][None, :]
         return torch.where(is_art[None, :], art_cols, struct_cols)
 
+    def trace(self) -> torch.Tensor:
+        """The recorded trace rows, f32[steps, 8]."""
+        if not self.trace_cap:
+            return torch.zeros((0, 8), dtype=F32, device=self.dev)
+        tail = self.steps - self.trace_cap * len(self._trace_full)
+        return torch.cat(self._trace_full + [self._trace_buf[:tail]])
+
     # ---- basis repair: warm phase-1 restart from the artificial basis ----
     def repair(self, s: State) -> State:
         """The maintained basis went numerically singular (or a warm basis
         was infeasible): demote every basic structural column to a nonbasic
         status, put the artificials back, resume in phase 1 under Bland."""
-        n, m, cfg = self.n, self.m, self.cfg
+        n, m = self.n, self.m
         lb_tot, ub_tot = self.lb_tot, self.ub_tot_p2
         demote = torch.where(
             lb_tot == ub_tot,
@@ -169,7 +228,14 @@ class PrimalKernel:
             repairs=repairs,
             status=torch.where(repairs > 3, st.NUMERICAL, s.status),
             w=torch.ones(n, dtype=F64, device=self.dev),
+            **self.eta0(),
         )
+
+    # ---- block product-form fold (inverse="eta") ----
+    def fold_etas(self, s: State) -> State:
+        """B⁻¹ ← B⁻¹ + etaZ·B⁻¹[etaR] (in place), and an empty block."""
+        s.Binv.addmm_(s.etaZ, s.Binv.index_select(0, s.etaR))
+        return dataclasses.replace(s, **self.eta0())
 
     # ---- refactorization ----
     def refactor(self, s: State) -> State:
@@ -177,10 +243,13 @@ class PrimalKernel:
         B = self.basis_matrix(s.basis, s.art_sign)
         Binv = None
         if cfg.refactor_mode == "polish":
-            # one Newton-Schulz step on the maintained inverse against the
-            # clean basis columns, X1 = X(2I − BX); a failed residual check
-            # (singular basis, placeholder warm inverse) rebuilds instead
+            # one Newton-Schulz step on the maintained inverse (pending etas
+            # folded in) against the clean basis columns, X1 = X(2I − BX); a
+            # failed residual check (singular basis, placeholder warm
+            # inverse) rebuilds instead
             X = s.Binv
+            if self.use_eta:
+                X = X + s.etaZ @ X.index_select(0, s.etaR)
             X1 = X @ (2.0 * torch.eye(self.m, dtype=F64, device=self.dev) - B @ X)
             resid = inverse_residual(B, X1)
             healthy = torch.isfinite(resid) & (resid < 1e-9)
@@ -211,19 +280,22 @@ class PrimalKernel:
         w = torch.where(s.w.max() > 1e6, torch.ones_like(s.w), s.w)
         return dataclasses.replace(
             s, Binv=Binv, xB=xB, pi=pi, w=w,
-            since_refactor=torch.zeros_like(s.since_refactor),
+            since_refactor=torch.zeros_like(s.since_refactor), **self.eta0(),
         )
 
     # ---- numerical watchdog ----
     def watchdog(self, s: State):
-        """The JAX body's opening check: a non-finite state, or |B⁻¹| blowing
-        past 1e14 on a stale inverse, forces a refactorization (or gives up
-        with NUMERICAL right after one).  Returns the checked state and the
-        packed loop condition (running, refactor due) evaluated as the JAX
-        loop would: ``running`` on the state BEFORE the check."""
+        """The JAX body's opening check: a non-finite state, or |B⁻¹| (or the
+        pending etas) blowing past 1e14 on a stale inverse, forces a
+        refactorization (or gives up with NUMERICAL right after one).
+        Returns the checked state and the packed loop condition (running,
+        refactor due[, fold due]) evaluated as the JAX loop would:
+        ``running`` on the state BEFORE the check."""
         cfg = self.cfg
         running = (s.status == st.RUNNING) & (s.it < self.max_iter)
         binv_mag = s.Binv.abs().max()
+        if self.use_eta:
+            binv_mag = torch.maximum(binv_mag, s.etaZ.abs().max())
         state_sum = s.xB.sum() + s.pi.sum()
         broken = (
             ~torch.isfinite(state_sum)
@@ -237,38 +309,115 @@ class PrimalKernel:
             since_refactor=since,
             broken=broken,
         )
-        return s, torch.stack([running, since >= cfg.refactor_period])
+        flags = [running, since >= cfg.refactor_period]
+        if self.use_eta:
+            flags.append(s.eta_count >= cfg.eta_block)
+        return s, torch.stack(flags)
 
-    # ---- one iteration (after watchdog and any refactorization) ----
-    def _select(self, d, s: State, vs):
-        """Best entering candidate; returns (q, has) as 0-dim tensors."""
+    # ---- one iteration (after watchdog, refactorization and fold) ----
+    def _select(self, d, s: State, vs, lo: int = 0):
+        """Best entering candidate among the columns ``[lo, lo+len(d))``
+        (``vs`` their statuses); returns (q, has) as 0-dim tensors."""
         cfg, n = self.cfg, self.n
+        hi = lo + d.shape[0]
         free = vs == st.NB_FREE
         imp_l = ((vs == st.NB_LOWER) | free) & (d < -cfg.eps_dual)
         imp_u = ((vs == st.NB_UPPER) | free) & (d > cfg.eps_dual)
         viol = torch.where(imp_l, -d, 0.0) + torch.where(imp_u, d, 0.0)
-        viol = torch.where(self.can_enter & (vs != st.BASIC), viol, 0.0)
-        score = viol * viol / s.w if cfg.pricing == "devex" else viol
+        viol = torch.where(self.can_enter[lo:hi] & (vs != st.BASIC), viol, 0.0)
+        score = viol * viol / s.w[lo:hi] if cfg.pricing == "devex" else viol
         j_best = torch.argmax(score)
-        j_bland = torch.argmin(torch.where(viol > 0, self.col_ids, n))
+        # the ids ascend, so the masked argmin is the smallest improving id
+        j_bland = torch.argmin(torch.where(viol > 0, self.col_ids[lo:hi], n))
         j = torch.where(s.bland, j_bland, j_best)
-        return j, _at(viol, j) > 0
+        has = _at(viol, j) > 0
+        return (j + lo if lo else j), has
+
+    def _confirm64(self, c_eff, pi, vs, q, has):
+        """f64 confirmation of an f32-chosen candidate's reduced cost."""
+        eps = self.cfg.eps_dual
+        d_q64 = _at(c_eff, q) - self.A.col_dot(pi, q)
+        vq = _at(vs, q)
+        ok = has & (
+            torch.where(vq == st.NB_UPPER, d_q64 > eps, d_q64 < -eps)
+            | ((vq == st.NB_FREE) & (d_q64.abs() > eps))
+        )
+        return d_q64, ok
+
+    def _price(self, s: State, c_eff, vs):
+        """Entering column ``(q, has_entering, d_q)``: partial, mixed or f64
+        pricing as the config says (JAX core.py:371-439)."""
+        A, cfg, n = self.A, self.cfg, self.n
+        pi = s.pi
+
+        def price_f64():
+            d = A.price(c_eff, pi)
+            q, has = self._select(d, s, vs)
+            return q, has, _at(d, q)
+
+        def price_full_mixed():
+            # scan in f32, confirm the chosen column's reduced cost in f64,
+            # and fall back to a full f64 pass when the scan finds nothing
+            # or its candidate fails confirmation (near optimality); OPTIMAL
+            # is only ever declared off the f64 path
+            d32 = A.price32(c_eff.float(), pi.float()).to(F64)
+            q32, has32 = self._select(d32, s, vs)
+            d_q64, confirmed = self._confirm64(c_eff, pi, vs, q32, has32)
+            if self._read(confirmed):
+                return q32, confirmed, d_q64
+            return price_f64()
+
+        if self.use_blocks:
+            # block-cyclic partial pricing: scan one block of columns this
+            # iteration; the full mixed pass when it offers no confirmed
+            # candidate
+            bsize = n // cfg.price_blocks
+            bstart = (self.steps % cfg.price_blocks) * bsize
+            win = slice(bstart, bstart + bsize)
+            d32b = A.price32(c_eff[win].float(), pi.float(), bstart, bsize).to(F64)
+            qb, has_b = self._select(d32b, s, vs[win], lo=bstart)
+            d_qb, confirmed_b = self._confirm64(c_eff, pi, vs, qb, has_b)
+            if self._read(confirmed_b):
+                return qb, confirmed_b, d_qb
+            return price_full_mixed()
+        if cfg.mixed_pricing:
+            return price_full_mixed()
+        return price_f64()
+
+    def _check_violation(self, s: State, phase1):
+        """Worst BFS-invariant violation of ``s``: the row residual of the
+        current point and the basic-bound violation (JAX core.py:653-681)."""
+        n, m = self.n, self.m
+        lb_tot, ub_tot = self.lb_tot, self.ub_tot_p2
+        nbv = _nonbasic_values(s.vstat, lb_tot, ub_tot)
+        nbv = torch.where(s.vstat == st.BASIC, 0.0, nbv)
+        xx = torch.zeros(n + 1, dtype=F64, device=self.dev)
+        xx[:n] = nbv[:n]
+        structural = s.basis < n
+        xx[torch.where(structural, s.basis, n)] = torch.where(structural, s.xB, 0.0)
+        kk = (s.basis - n).clamp(0, m - 1)
+        artc = torch.zeros(m, dtype=F64, device=self.dev).index_add_(
+            0, kk, torch.where(~structural, s.art_sign[kk] * s.xB, 0.0))
+        row_res = (self.A.matvec(xx[:n]) + artc - self.b).abs().max()
+        lbv = lb_tot[s.basis]
+        ubv = torch.where(~structural & phase1, INF, ub_tot[s.basis])
+        bviol = torch.maximum(torch.maximum(lbv - s.xB, s.xB - ubv), torch.zeros_like(lbv)).max()
+        return torch.maximum(row_res, bviol)
 
     def step(self, s: State):
         """One pivot, bound flip or no-op.  Returns ``(state, needs_repair)``.
-        ``s.Binv`` is updated in place."""
+        Under the dense inverse ``s.Binv`` is updated in place."""
         A, cfg, n, m = self.A, self.cfg, self.n, self.m
         lb, ub, c = self.lb, self.ub, self.c
         lb_tot, ub_tot = self.lb_tot, self.ub_tot_p2
         period = cfg.refactor_period
+        use_eta = self.use_eta
 
         # phase transition: artificial mass numerically zero => real costs.
         # Only on a fresh state; the switch invalidates the phase-1 duals, so
         # it forces a refactorization and this iteration performs no pivot.
-        transition = (
-            (s.phase == 1) & (s.since_refactor == 0)
-            & (self.art_mass(s) <= cfg.eps_feas)
-        )
+        art_mass = self.art_mass(s)
+        transition = (s.phase == 1) & (s.since_refactor == 0) & (art_mass <= cfg.eps_feas)
         phase = torch.where(transition, 2, s.phase)
         since_refactor = torch.where(transition, period, s.since_refactor)
         phase1 = phase == 1
@@ -276,31 +425,7 @@ class PrimalKernel:
         pi = s.pi
         vs = s.vstat[:n]
 
-        # ---- pricing over the whole column pool ----
-        def price_f64():
-            d = A.price(c_eff, pi)
-            q, has = self._select(d, s, vs)
-            return q, has, _at(d, q)
-
-        if cfg.mixed_pricing:
-            # scan in f32, confirm the chosen column's reduced cost in f64,
-            # and fall back to a full f64 pass when the scan finds nothing
-            # or its candidate fails confirmation (near optimality); OPTIMAL
-            # is only ever declared off the f64 path
-            d32 = A.price32(c_eff.float(), pi.float()).to(F64)
-            q32, has32 = self._select(d32, s, vs)
-            d_q64 = _at(c_eff, q32) - A.col_dot(pi, q32)
-            vq32 = _at(vs, q32)
-            confirmed = has32 & (
-                torch.where(vq32 == st.NB_UPPER, d_q64 > cfg.eps_dual, d_q64 < -cfg.eps_dual)
-                | ((vq32 == st.NB_FREE) & (d_q64.abs() > cfg.eps_dual))
-            )
-            if self._read(confirmed):
-                q, has_entering, d_q = q32, confirmed, d_q64
-            else:
-                q, has_entering, d_q = price_f64()
-        else:
-            q, has_entering, d_q = price_f64()
+        q, has_entering, d_q = self._price(s, c_eff, vs)
 
         # ---- ratio test ----
         vq = _at(vs, q)
@@ -309,6 +434,9 @@ class PrimalKernel:
             torch.where(vq == st.NB_FREE, -torch.sign(d_q), 1.0),
         ).to(F64)
         u = A.ftran(s.Binv, q)  # B⁻¹ a_q
+        if use_eta:
+            # current inverse = (I + Z·Pᵀ)·Binv → u += Z·u[etaR]
+            u = u + s.etaZ @ u.index_select(0, s.etaR)
         ut = t * u
 
         k = s.basis
@@ -358,6 +486,10 @@ class PrimalKernel:
         p = _at(u, r)
         p_safe = torch.where(p.abs() > 0, p, 1.0)
         cur_row_r = s.Binv.index_select(0, r.reshape(1))[0]
+        if use_eta:
+            # row r of the CURRENT inverse (Binv + pending etas)
+            cur_row_r = cur_row_r + s.etaZ.index_select(0, r.reshape(1))[0] @ \
+                s.Binv.index_select(0, s.etaR)
         w_row = cur_row_r / p_safe
 
         kr = _at(k, r)
@@ -396,8 +528,23 @@ class PrimalKernel:
         else:
             w_new = s.w
 
-        # B⁻¹ last: the selects above read the pre-pivot inverse
-        rank_one_basis_update(s.Binv, u, r, apply=is_pivot)
+        if use_eta:
+            # push the new eta z = (e_r − u)/p in composed form:
+            #   E_new·(I + Z·Pᵀ) = I + (Z + z⊗Z[r,:])·Pᵀ + z·e_rᵀ
+            z = -u / p_safe
+            z = _put(z, r, _at(z, r) + 1.0 / p_safe)
+            Zc = s.etaZ + z[:, None] * s.etaZ.index_select(0, r.reshape(1))
+            Zc = Zc.index_copy(1, s.eta_count.reshape(1), z[:, None])
+            eta = dict(
+                etaZ=torch.where(is_pivot, Zc, s.etaZ),
+                etaR=torch.where(is_pivot, s.etaR.index_copy(
+                    0, s.eta_count.reshape(1), r.reshape(1)), s.etaR),
+                eta_count=s.eta_count + is_pivot.long(),
+            )
+        else:
+            # B⁻¹ last: the selects above read the pre-pivot inverse
+            rank_one_basis_update(s.Binv, u, r, apply=is_pivot)
+            eta = {}
 
         degen = do_update & (theta_safe <= cfg.eps_zero)
         degen_count = torch.where(degen, s.degen_count + 1,
@@ -415,7 +562,7 @@ class PrimalKernel:
         # ---- status: terminal decisions only on a FRESH inverse ----
         fresh = since_refactor == 0
         wants_terminal = ~has_entering | (has_entering & ~can_step)
-        art_ok = self.art_mass(s) <= 10 * cfg.eps_feas
+        art_ok = art_mass <= 10 * cfg.eps_feas
         xb_viol = torch.maximum(lb_tot[s.basis] - s.xB, s.xB - ub_tot[s.basis])
         xb_ok = torch.where(phase1 & (s.basis >= n), 0.0, xb_viol).max() <= 1e3 * cfg.eps_feas
         terminal_status = torch.where(
@@ -437,6 +584,24 @@ class PrimalKernel:
         )
         status_new = torch.where(needs_repair, status, status_new)
 
+        # ---- periodic in-loop invariant check (cfg.check_every_n) ----
+        if cfg.check_every_n and self.steps % cfg.check_every_n == 0:
+            self.viol = torch.maximum(self.viol, self._check_violation(s, phase1))
+
+        # ---- per-iteration metric row (cfg.trace_iters), on the device ----
+        if self.trace_cap:
+            cBxB = torch.where(s.basis >= n, 0.0, c[s.basis.clamp(0, n - 1)]) @ s.xB
+            events = (is_pivot.float() + 2.0 * is_flip.float()
+                      + 4.0 * (since_refactor == 0).float() + 8.0 * s.bland.float())
+            row = torch.stack([v.to(F32) for v in (
+                phase, cBxB, art_mass, d_q, theta_safe, events, q, r)])
+            slot = self.steps % self.trace_cap
+            if slot == 0 and self.steps:
+                self._trace_full.append(self._trace_buf)
+                self._trace_buf = torch.zeros_like(self._trace_buf)
+            self._trace_buf[slot] = row
+
+        self.steps += 1
         s_out = dataclasses.replace(
             s,
             status=status_new,
@@ -454,6 +619,7 @@ class PrimalKernel:
                 since_refactor + is_pivot.long(),
             ),
             it=s.it + 1,
+            **eta,
         )
         return s_out, needs_repair
 
@@ -487,6 +653,7 @@ def solve_core(
         status=scalar(st.RUNNING), it=scalar(0), degen_count=scalar(0),
         bland=scalar(cfg.pricing == "bland", torch.bool), repairs=scalar(0),
         w=torch.ones(n, dtype=F64, device=dev), broken=scalar(False, torch.bool),
+        **K.eta0(),
     )
     if basis0 is None:
         # ---- cold start: all-artificial basis ----
@@ -555,20 +722,25 @@ def solve_core(
     # ``s`` is the watched state the next iteration starts from; ``final``
     # the same state before the watchdog, which is what the JAX loop hands
     # on when its condition fails
+    def checked(state):
+        state, flags = K.watchdog(state)
+        running, refactor_due, fold_due = (K._read(flags) + [False])[:3]
+        return state, running, refactor_due, fold_due
+
     final = s
-    s, flags = K.watchdog(final)
-    running, refactor_due = K._read(flags)
+    s, running, refactor_due, fold_due = checked(final)
     while running:
         if refactor_due:
             s = K.refactor(s)
+        elif fold_due:
+            s = K.fold_etas(s)
         final, needs_repair = K.step(s)
         s, flags = K.watchdog(final)
-        repair_due, running, refactor_due = K._read(
-            torch.cat([needs_repair.reshape(1), flags]))
+        repair_due, running, refactor_due, fold_due = (K._read(
+            torch.cat([needs_repair.reshape(1), flags])) + [False])[:4]
         if repair_due:
             final = K.repair(final)
-            s, flags = K.watchdog(final)
-            running, refactor_due = K._read(flags)
+            s, running, refactor_due, fold_due = checked(final)
 
     s = dataclasses.replace(
         final,
@@ -596,4 +768,5 @@ def solve_core(
         x=x, status=s.status, it=s.it, phase=s.phase, basis=s.basis,
         vstat=s.vstat, art_inf=K.art_mass(dataclasses.replace(s, xB=xB)),
         pi=cB @ s.Binv, obj=c @ x, art_sign=s.art_sign, host_reads=K.host_reads,
+        trace=K.trace(), viol=K.viol,
     )

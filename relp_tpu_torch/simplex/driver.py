@@ -4,9 +4,11 @@ Port of the primal branch of ``relp_tpu/simplex/driver.py``: a computational
 form is padded (``row_align``/``col_align``, as the JAX package pads with
 ``bucket_shapes=False``), its constraint matrix goes to the device as a
 dense, ELL or hybrid operator (``_device_matrix``), the core solves it from
-the cold, slack-crash or caller's warm start in one call (no chunking: the
-card has no execution watchdog), and the result is unscaled into a named
-``Solution``.
+the cold, slack-crash, basis-file or caller's warm start in one call (no
+chunking: the card has no execution watchdog), and the result is unscaled
+into a named ``Solution``.  With ``perturb`` the core first solves against
+seeded expanded bounds (``_perturbed_bounds``) and then against the true
+bounds, warm-started from the perturbed optimum.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ class SimplexResult:
     art_residual: float = 0.0
     metrics: Optional[SolveMetrics] = None
     duals: Optional[np.ndarray] = None  # row duals in ORIGINAL row units
+    trace: Optional[np.ndarray] = None  # (iters, 8) per-iteration stream
+    #                                     (config.trace_iters; see core.SolveOutput)
+    check_violation: float = 0.0  # worst periodic-invariant violation
     # final basis state (padded space; None when the engine never ran)
     basis: Optional[np.ndarray] = None     # i32[m_pad] basis columns
     vstat: Optional[np.ndarray] = None     # i32[n_pad+m_pad] statuses
@@ -84,6 +89,31 @@ def _device_matrix(cf: ComputationalForm, m_pad: int, n_pad: int,
     A = np.zeros((m_pad, n_pad), dtype=np.float64)
     A[: cf.m, : cf.n] = csc.toarray()
     return DenseMatrix(torch.from_numpy(A).to(device)), "dense"
+
+
+def _perturbed_bounds(lb, ub, perturb: float):
+    """Anti-degeneracy bound expansion (``config.perturb``), deterministic:
+    finite non-fixed bounds move out by [0.5, 1]·perturb·(1+|bound|), drawn
+    over the padded columns from seed 0xD31 as the JAX driver draws them."""
+    rng = np.random.default_rng(0xD31)
+    n_pad = lb.shape[0]
+    fixed = lb == ub
+    lb_p = np.where(np.isfinite(lb) & ~fixed,
+                    lb - perturb * (1 + np.abs(lb)) * rng.uniform(0.5, 1.0, n_pad), lb)
+    ub_p = np.where(np.isfinite(ub) & ~fixed,
+                    ub + perturb * (1 + np.abs(ub)) * rng.uniform(0.5, 1.0, n_pad), ub)
+    return lb_p, ub_p
+
+
+def _trace_aggregates(metrics: SolveMetrics, trace: np.ndarray) -> None:
+    """Pivot, flip, refresh, Bland and degenerate-step counts of a trace."""
+    events = trace[:, 5].astype(np.int64)
+    is_piv = (events & 1) == 1
+    metrics.pivots = int(is_piv.sum())
+    metrics.bound_flips = int(((events >> 1) & 1).sum())
+    metrics.refresh_iters = int(((events >> 2) & 1).sum())
+    metrics.bland_iters = int(((events >> 3) & 1).sum())
+    metrics.degenerate_steps = int((is_piv & (trace[:, 4] <= 1e-11)).sum())
 
 
 def _cold_vstat(lb, ub):
@@ -162,18 +192,35 @@ def solve_computational_form(
         for k, v in warm.items()
     }
     with Timer() as t:
-        out = solve_core(A, b_t, c_t, lb_t, ub_t, config, max_iter, **warm_t)
+        outs = []
+        if config.perturb > 0:
+            # anti-degeneracy: solve with expanded bounds first (ties broken),
+            # then clean up against the true bounds from the perturbed basis
+            lb_p, ub_p = (torch.as_tensor(v, **f64)
+                          for v in _perturbed_bounds(lb, ub, config.perturb))
+            outs.append(solve_core(A, b_t, c_t, lb_p, ub_p, config, max_iter, **warm_t))
+            warm_t = dict(basis0=outs[-1].basis, vstat0=outs[-1].vstat[:n_pad],
+                          art_sign0=outs[-1].art_sign, phase0=int(outs[-1].phase))
+        outs.append(solve_core(A, b_t, c_t, lb_t, ub_t, config, max_iter, **warm_t))
+        out = outs[-1]
         status = int(out.status)
-        iterations = int(out.it)
+        iterations = sum(int(o.it) for o in outs)
         x = out.x.cpu().numpy()
 
     kind = st.STATUS_TO_TYPE[status]
+    check_violation = max(float(o.viol) for o in outs)
     metrics = SolveMetrics(
         status=kind.value, iterations=iterations, wall_s=t.elapsed, m=m, n=n,
         m_padded=m_pad, n_padded=n_pad, art_residual=float(out.art_inf),
         phase=int(out.phase), nnz=int(A_csc.nnz), matrix_format=fmt,
-        device=str(dev), host_reads=out.host_reads,
+        device=str(dev), host_reads=sum(o.host_reads for o in outs),
+        check_violation=check_violation,
     )
+    trace = None
+    if config.trace_iters:
+        trace = torch.cat([o.trace for o in outs]).cpu().numpy()
+        if len(trace):
+            _trace_aggregates(metrics, trace)
     metrics.emit()
     # duals in original row units (y_orig = y_scaled · r_i); a maximization
     # flips the internal sign
@@ -184,6 +231,8 @@ def solve_computational_form(
         art_residual=float(out.art_inf),
         metrics=metrics,
         duals=sense * out.pi.cpu().numpy()[:m] * cf.row_scale,
+        trace=trace,
+        check_violation=check_violation,
         basis=out.basis.cpu().numpy().astype(np.int32),
         vstat=out.vstat.cpu().numpy().astype(np.int32),
         art_sign=out.art_sign.cpu().numpy(),
@@ -238,14 +287,65 @@ class GeneralFormResult:
     row_names: Optional[list] = None
 
 
+def basis_file_warm_start(basis_file, general: GeneralForm, cf: ComputationalForm):
+    """A warm-start builder from an MPS basis file (io/basis_file.py).
+
+    Statuses are resolved by name against the (possibly presolved) problem;
+    rows left uncovered get artificial basis entries, and a singular warm
+    basis degrades to a phase-1 repair inside the engine.
+    """
+    from relp_tpu_torch.io.basis_file import BasisStatus
+
+    var_names = {v.name for v in general.variables}
+    row_names = set(general.row_names)
+    col_stat, row_stat = {}, dict(basis_file.row_status)
+    for name, s in basis_file.column_status.items():
+        if name not in var_names and name in row_names:
+            row_stat[name] = s
+        else:
+            col_stat[name] = s
+
+    def build(m_pad, n_pad):
+        vstat0 = np.full(n_pad, st.NB_FIXED, np.int32)
+        vstat0[: cf.n] = _cold_vstat(cf.lb, cf.ub)
+        basic = []
+
+        def apply(j, s):
+            if s is BasisStatus.BASIC and len(basic) < m_pad:
+                basic.append(j)
+                vstat0[j] = st.BASIC
+            elif s is BasisStatus.AT_UPPER and np.isfinite(cf.ub[j]):
+                vstat0[j] = st.NB_UPPER
+            elif s is BasisStatus.AT_LOWER and np.isfinite(cf.lb[j]):
+                vstat0[j] = st.NB_LOWER
+
+        for j, v in enumerate(general.variables):
+            s = col_stat.get(v.name)
+            if s is not None:
+                apply(j, s)
+        for idx, row_i in enumerate(cf.slack_rows):
+            apply(cf.n_structural + int(idx),
+                  row_stat.get(general.row_names[int(row_i)], BasisStatus.BASIC))
+
+        # uncovered slots: artificials — padded rows first, then real rows
+        art_rows = list(range(cf.m, m_pad)) + list(range(cf.m))
+        basis0 = np.array(basic + [n_pad + r for r in art_rows[: m_pad - len(basic)]],
+                          dtype=np.int64)
+        return basis0, vstat0
+
+    return build
+
+
 def solve_general_form(
     general: GeneralForm,
     config: SolverConfig = DEFAULT_CONFIG,
     device: DeviceLike = None,
+    initial_basis=None,
 ) -> GeneralFormResult:
     """End-to-end: GeneralForm → presolve → computational form → device
     solve → Solution.  ``device=None`` reads ``RELP_TPU_TORCH_DEVICE``
-    (default ``"cuda"``)."""
+    (default ``"cuda"``); ``initial_basis`` is an ``MpsBasis``
+    (io/basis_file.py) to warm-start from."""
     from relp_tpu_torch.model.computational_form import build_computational_form
 
     dev = resolve_device(device)
@@ -265,7 +365,9 @@ def solve_general_form(
         return GeneralFormResult(kind=LinearProgramType.FINITE_OPTIMUM, solution=done)
 
     cf = build_computational_form(general, scale=config.scale)
-    res = solve_computational_form(cf, config, device=dev)
+    builder = (basis_file_warm_start(initial_basis, general, cf)
+               if initial_basis is not None else None)
+    res = solve_computational_form(cf, config, warm_start_builder=builder, device=dev)
     return _finish_general(general, cf, res)
 
 

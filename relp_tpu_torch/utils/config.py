@@ -15,15 +15,11 @@ import dataclasses
 # field -> (default, ROADMAP.md entry that ports the engine behind it)
 _UNPORTED = {
     "algorithm": ("primal", "queue 1, dual simplex / IPM / PDLP"),
-    "inverse": ("dense", "queue 1, eta (block product-form) inverse"),
-    "price_blocks": (1, "queue 1, partial pricing"),
-    "trace_iters": (False, "queue 1, per-iteration trace"),
-    "check_every_n": (0, "queue 1, in-loop invariant check"),
-    "perturb": (0.0, "queue 1, anti-degeneracy perturbation"),
     "mesh_cols": (1, "queue 1, multi-device"),
 }
 
 _CHOICES = {
+    "inverse": ("dense", "eta"),
     "refactor_mode": ("polish", "full"),
     "pricing": ("devex", "dantzig", "bland"),
     "matrix_format": ("auto", "dense", "ell", "hybrid"),
@@ -51,22 +47,38 @@ class SolverConfig:
     # a refactorization pivot below this marks the basis singular -> repair
     singular_tol: float = 1e-9
 
+    # basis inverse: "dense" (explicit B⁻¹, one in-place rank-1 update per
+    # pivot) or "eta" (block product form: pivots compose into an
+    # (m × eta_block) pending block, folded into B⁻¹ every eta_block pivots)
     inverse: str = "dense"
+    eta_block: int = 16
     # "polish": one Newton-Schulz step on the maintained inverse, with an
     # LU rebuild when its residual check fails; "full": always the LU
     refactor_mode: str = "polish"
     # scan the column pool in f32, confirm the chosen column in f64
     mixed_pricing: bool = True
+    # record one row of per-iteration metrics on the device (SolveOutput.
+    # trace: phase, cB·xB, artificial mass, d_q, step, events, q, r), in
+    # buffers of trace_capacity rows
     trace_iters: bool = False
+    trace_capacity: int = 8192
+    # every N iterations recompute the BFS invariants (row residual, basic
+    # bound violation) and keep the worst; 0 = off
     check_every_n: int = 0
     # switch to Bland's rule after this many consecutive degenerate pivots
     bland_trigger: int = 100
+    # partial pricing: scan one of price_blocks column blocks per iteration
+    # (block-cyclic), the full pass when it offers no confirmed candidate;
+    # needs mixed_pricing and n_pad divisible by it; 1 = full pricing
     price_blocks: int = 1
     pricing: str = "devex"
     # "auto" picks ELL for m_pad >= 1024 with short columns, else dense;
     # ELL with a few very long columns becomes "hybrid"
     matrix_format: str = "auto"
     algorithm: str = "primal"
+    # anti-degeneracy: expand finite non-fixed bounds by [0.5, 1]·perturb·
+    # (1+|bound|) (seeded), solve, then re-solve with the true bounds from
+    # the perturbed optimum; 0 = off
     perturb: float = 0.0
     mesh_cols: int = 1
 

@@ -1,15 +1,19 @@
-"""Per-solve metrics and a wall-clock timer.
+"""Per-solve metrics, a wall-clock timer and a device profiler hook.
 
 Every solve produces a :class:`SolveMetrics` record, logged at INFO level
-on the ``relp_tpu_torch`` logger.
+on the ``relp_tpu_torch`` logger; :func:`device_trace` profiles the enclosed
+work with ``torch.profiler`` into a Chrome trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
+import os
 import time
 from dataclasses import asdict, dataclass
+from typing import Optional
 
 logger = logging.getLogger("relp_tpu_torch")
 
@@ -33,6 +37,14 @@ class SolveMetrics:
     # device-to-host reads the iteration loop made (small flag/scalar
     # copies, each a synchronisation with the device)
     host_reads: int = 0
+    # per-iteration stream aggregates (config.trace_iters; 0 when off)
+    pivots: int = 0
+    bound_flips: int = 0
+    refresh_iters: int = 0
+    bland_iters: int = 0
+    degenerate_steps: int = 0
+    # worst periodic in-loop invariant violation (config.check_every_n)
+    check_violation: float = 0.0
 
     @property
     def iters_per_s(self) -> float:
@@ -56,3 +68,24 @@ class Timer:
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self._t0
         return False
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None):
+    """Profile the enclosed work with ``torch.profiler`` (host activity, and
+    the card's kernels when CUDA is available) and write a Chrome trace to
+    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing); a
+    no-op when ``log_dir`` is falsy."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

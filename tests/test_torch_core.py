@@ -8,6 +8,8 @@ Iteration counts are not compared: near-tie pivots may differ.  A solve
 started in the JAX package also finishes in the port from the JAX state.
 """
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,3 +167,33 @@ def test_state_carried_across_finishes_in_port(fmt):
     assert int(jax_done.status) == jax_st.OPTIMAL
     assert int(port_done.status) == torch_st.OPTIMAL
     assert float(port_done.obj) == pytest.approx(float(jax_done.obj), rel=OBJ_REL)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "ell"])
+def test_carried_state_never_aliases_jax_arrays(fmt):
+    # the port copies what it takes from JAX: its in-place updates must not
+    # write into JAX's (read-only) buffers, and taking them warns of nothing
+    A, b, c, lb, ub = _boxed_sparse(64, 256, 0.05, 3)
+    m, n = A.shape
+    jA = jnp.asarray(A) if fmt == "dense" else jax_ell_from_csc(sp.csc_matrix(A), m, n)
+    started = jax_solve_core(jA, b, c, lb, ub, cfg=JaxConfig(), max_iter=40)
+    arrays = dict(basis=np.asarray(started.basis), vstat=np.asarray(started.vstat)[:n],
+                  art_sign=np.asarray(started.art_sign), phase=np.asarray(started.phase))
+    op_arrays = (dict(A=np.asarray(jA)) if fmt == "dense" else
+                 dict(data=np.asarray(jA.data), rows=np.asarray(jA.rows),
+                      rdata=np.asarray(jA.rdata), rcols=np.asarray(jA.rcols)))
+    before = {k: v.copy() for k, v in {**arrays, **op_arrays}.items()}
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tA = operator_from_numpy(device="cpu", m=m if fmt == "ell" else None, **op_arrays)
+        warm = warm_start_from_numpy(**arrays, device="cpu")
+    tensors = [tA.A] if fmt == "dense" else [tA.data_t, tA.rows_t, tA.rdata_t, tA.rcols_t]
+    tensors += [warm["basis0"], warm["vstat0"], warm["art_sign0"]]
+    for t in tensors:
+        assert not any(np.shares_memory(t.numpy(), a) for a in {**arrays, **op_arrays}.values())
+    b_t, c_t, lb_t, ub_t = (torch.as_tensor(v, dtype=torch.float64) for v in (b, c, lb, ub))
+    done = torch_solve_core(tA, b_t, c_t, lb_t, ub_t, TorchConfig(), 5000, **warm)
+    assert int(done.status) == torch_st.OPTIMAL
+    for k, v in before.items():
+        np.testing.assert_array_equal({**arrays, **op_arrays}[k], v, err_msg=k)

@@ -11,11 +11,15 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
+from scipy.optimize import linprog
 from scipy.sparse.csgraph import maximum_flow
 
-from relp_tpu_torch import api
+from relp_tpu_torch import api, probe
 from relp_tpu_torch.io.mps_write import export_mps
+from relp_tpu_torch.models.dense import dense_lp, dense_lp_data
 from relp_tpu_torch.models.networks import max_flow_lp, random_arcs
+from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_plain
+from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
 from relp_tpu_torch.ops.sparse_kernels import (
     ell_price,
     ell_price_plain,
@@ -90,3 +94,67 @@ def test_max_flow_on_the_card_goes_through_both_kernels(cuda, tmp_path):
     assert res.simplex.metrics.device.startswith("cuda")
     assert ell_price.launches - price0 >= res.simplex.iterations
     assert ell_spmv.launches > spmv0
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("m,n,j0,w", [
+    (768, 1536, 0, None),      # the dense slice's operator
+    (768, 1536, 384, 384),     # one partial-pricing block of four
+    (128, 1024, 256, 256),     # the probe's grid block
+    (2048, 16384, 0, None),    # wide: bandwidth shows
+    (1000, 333, 5, 300),       # ragged rows, columns and window
+])
+def test_dense_price_matches_plain_version(cuda, dtype, tol, m, n, j0, w):
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.uniform(-1.0, 1.0, (m, n)), dtype=dtype, device=cuda)
+    v = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=cuda)
+    width = n - j0 if w is None else w
+    c = torch.as_tensor(rng.standard_normal(width), dtype=dtype, device=cuda)
+    launches = dense_price.launches
+    for cc in (c, None):
+        got = dense_price(A, v, cc, j0, w)
+        torch.cuda.synchronize()
+        want = dense_price_plain(A, v, cc, j0, w)
+        # f32 sums of m terms in another order: scale the tolerance by |v|·|A|
+        scale = float((v.abs() @ A[:, j0:j0 + width].abs()).max())
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol * max(1.0, scale))
+        # the same result on every run: partial sums combine in a fixed order
+        assert torch.equal(dense_price(A, v, cc, j0, w), got)
+    assert dense_price.launches == launches + 4
+
+
+def test_ell_price_window_matches_plain_version(cuda):
+    rng = np.random.default_rng(4)
+    m, n, K = 4096, 32768, 3
+    data = torch.as_tensor(rng.standard_normal((K, n)), dtype=torch.float32, device=cuda)
+    idx = torch.as_tensor(rng.integers(0, m, (K, n)).astype(np.int32), device=cuda)
+    y = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32, device=cuda)
+    j0, w = 8192, 8192
+    c = torch.as_tensor(rng.standard_normal(w), dtype=torch.float32, device=cuda)
+    got = ell_price(data, idx, y, c, j0, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ell_price_plain(data, idx, y, c, j0, w), rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got, c - ell_price(data, idx, y)[j0:j0 + w], rtol=2e-5, atol=2e-5)
+
+
+def test_probe_passes_on_the_card(cuda, capsys):
+    f32, f64, price = probe_scale_f32.launches, probe_scale_f64.launches, dense_price.launches
+    assert probe.main() == 0
+    out = capsys.readouterr().out
+    assert out.count(": OK") == 3, out
+    assert (probe_scale_f32.launches - f32, probe_scale_f64.launches - f64) == (1, 1)
+    assert dense_price.launches - price == 4  # one per 256-column block
+
+
+def test_dense_lp_on_the_card_goes_through_dense_price(cuda, tmp_path):
+    m, n = 96, 192
+    A, b, c = dense_lp_data(m, n)
+    ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, 2), method="highs")
+    path = tmp_path / "dense.mps"
+    export_mps(dense_lp(m, n), path)
+    price0 = dense_price.launches
+    res = api.solve(path, device=cuda)
+    assert res.kind.value == "finite_optimum"
+    assert res.solution.objective_value == pytest.approx(ref.fun, rel=1e-9)
+    assert res.simplex.metrics.matrix_format == "dense"
+    assert dense_price.launches - price0 >= res.simplex.iterations

@@ -156,11 +156,11 @@ def test_cuda_without_a_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_config_refuses_engines_not_ported():
-    for field, value in (("algorithm", "dual"), ("inverse", "eta"), ("price_blocks", 4),
-                         ("trace_iters", True), ("check_every_n", 10), ("perturb", 1e-6),
-                         ("mesh_cols", 2)):
+    for field, value in (("algorithm", "dual"), ("mesh_cols", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SolverConfig(**{field: value})
     with pytest.raises(ValueError):
         SolverConfig(pricing="steepest")
+    with pytest.raises(ValueError):
+        SolverConfig(inverse="lu")
     assert SolverConfig().pricing == "devex" and SolverConfig().matrix_format == "auto"
