@@ -17,18 +17,29 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              partial-pricing window) and ``ell_spmv`` at the max-flow
              operator's shapes and on a K = 8 pool; ``dense_price`` (with
              and without ``c``) at the dense LP's operator, on a window of
-             it and at a wide 2,048 × 16,384; ``probe_scale`` at [8, 128].
-             Device time per launch (CUDA events over batches of 50
-             launches) and the time per call as the host issues it.
+             it and at a wide 2,048 × 16,384; ``probe_scale`` at [8, 128];
+             ``ell_price_select`` and ``dense_price_select`` (the pricing
+             pass with the entering column chosen in the kernel) on the two
+             operators with the state of a solve cut at 600 iterations, and
+             on made-up ties.  Each pricing kernel is run twice and must
+             give the same bits.  Device time per launch (CUDA events over
+             batches of 50 launches) beside the plain version's, the bound
+             (the bytes the call must move at 3.35 TB/s, or its operations
+             at the card's peak) and one PyTorch call as a yardstick
+             (``addmv``/``mv`` of the dense window, ``mv`` of a sparse CSR
+             matrix), and the time per call as the host issues it.
 5. slice   — a seeded 4,096-node max-flow LP (32,768 arcs) written to MPS
              and solved through ``relp_tpu_torch.api.solve(path)`` on the
              ELL operator; the objective must equal ``scipy``'s max-flow
-             value and both ELL kernels must have been launched by the solve.
+             value and the three ELL wrappers must have been launched by
+             the solve, ``ell_price_select`` at least once per iteration.
 6. dense   — the dense resource-allocation LP at 768 × 1536 written to MPS
              and solved through ``api.solve(path)``; the operator must be
-             dense, the objective must equal HiGHS's (scipy ``linprog``)
-             within 1e-9 relative, and ``dense_price`` must have been
-             launched at least once per iteration.
+             dense, the objective must equal HiGHS's (scipy ``linprog``,
+             solved meanwhile by a second process on the host) within 1e-9
+             relative, and ``dense_price`` and
+             ``dense_price_select`` must each have been launched at least
+             once per iteration.
 7. options — each primal option on the card (the eta inverse, partial
              pricing, perturbation, the trace, the invariant check) on the
              dense LP at 256 × 512, against the default config's objective;
@@ -48,12 +59,14 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -67,6 +80,11 @@ HOLD_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at the H100's clock
 F32_TOL = 2e-5          # f32 sums run in another order (and fused) than the plain version
 F64_TOL = 1e-12
 OBJ_REL = 1e-9
+MID_SOLVE_ITERS = 600   # where the select comparisons take their state
+# NVIDIA's H100 SXM data sheet: device memory rate, and the float32 / float64
+# rates outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 
 # the classic MPS example (en.wikipedia.org, "MPS (format)"); optimum -8
 WIKI_MPS = """NAME          TESTPROB
@@ -93,8 +111,11 @@ ENDATA
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "ell_price": ("relp_tpu_torch/csrc/sparse_kernels.cu", "relp_tpu/ops/pallas_kernels.py:126"),
+    "ell_price_select": ("relp_tpu_torch/csrc/sparse_kernels.cu",
+                         "relp_tpu/ops/pallas_kernels.py:126"),
     "ell_spmv": ("relp_tpu_torch/csrc/sparse_kernels.cu", "relp_tpu/ops/pallas_kernels.py:64"),
     "dense_price": ("relp_tpu_torch/csrc/dense_kernels.cu", "tools/probe_pallas.py:50"),
+    "dense_price_select": ("relp_tpu_torch/csrc/dense_kernels.cu", "tools/probe_pallas.py:50"),
     "probe_scale_f32": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:24"),
     "probe_scale_f64": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:37"),
 }
@@ -102,11 +123,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 
 def _wrappers():
     """Every kernel wrapper by name (each carries its ``launches`` count)."""
-    from relp_tpu_torch.ops.dense_kernels import dense_price
+    from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_select
     from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
-    from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_spmv
+    from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_price_select, ell_spmv
 
-    return {"ell_price": ell_price, "ell_spmv": ell_spmv, "dense_price": dense_price,
+    return {"ell_price": ell_price, "ell_price_select": ell_price_select,
+            "ell_spmv": ell_spmv, "dense_price": dense_price,
+            "dense_price_select": dense_price_select,
             "probe_scale_f32": probe_scale_f32, "probe_scale_f64": probe_scale_f64}
 
 
@@ -204,27 +227,60 @@ def _host_ms(fn, runs=TIMED_RUNS):
     return (time.perf_counter() - t0) * 1e3 / runs
 
 
-def _compare(label, kernel_fn, plain_fn, tol, smi):
-    """Launch, synchronise, compare with the plain version, then time both."""
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _compare(label, kernel_fn, plain_fn, tol, smi, *, nbytes, flops, tag,
+             library_fn=None, library=None, same_bits=False, scale=1.0, plain_runs=TIMED_RUNS):
+    """Launch, synchronise, compare with the plain version, then time both
+    (and ``library_fn``, one PyTorch call named ``library``).  A selection
+    ``(q, has, d_q)`` must agree exactly in ``q`` and ``has``.  ``nbytes``
+    and ``flops`` are what the call must move and compute: they give the
+    bound.  ``scale`` widens the tolerance to the size of the terms summed
+    where they cancel, ``plain_runs`` shortens the timed batches of a plain
+    version of many launches.  Returns the kernel's row of the report."""
     import torch
 
     got = kernel_fn()
     torch.cuda.synchronize()
     want = plain_fn()
     torch.cuda.synchronize()
+    if same_bits:
+        again = kernel_fn()
+        torch.cuda.synchronize()
+        pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"[kernels] {label}: two runs gave different bits")
+    choice = ""
+    if isinstance(got, tuple):
+        (q, has, got), (q0, has0, want) = got, want
+        if (int(q), bool(has)) != (int(q0), bool(has0)):
+            raise AssertionError(f"[kernels] {label}: chose (q, has) = ({int(q)}, {bool(has)}), "
+                                 f"the plain version ({int(q0)}, {bool(has0)})")
+        choice = f"q {int(q)} has {bool(has)} == plain; d_q "
     err = (got - want).abs()
+    tol = tol * max(1.0, scale)
     bound = tol + tol * want.abs()
     if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
         raise AssertionError(f"[kernels] {label}: max abs err {float(err.max()):.3e} "
                              f"exceeds {tol:g} (rel/abs)")
-    ms, plain_ms = _device_ms(kernel_fn), _device_ms(plain_fn)
-    host_ms, plain_host_ms = _host_ms(kernel_fn), _host_ms(plain_fn)
-    print(f"[kernels] {label}: max_abs_err {float(err.max()):.3e} "
-          f"(bound {tol:g}·(1 + |plain|)) "
-          f"device kernel {ms * 1e3:.2f} us plain {plain_ms * 1e3:.2f} us; "
+    by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[tag] * 1e3
+    row = {"max_abs_err": float(err.max()), "ms": _device_ms(kernel_fn),
+           "plain_ms": _device_ms(plain_fn, plain_runs, batches=3),
+           "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "library_ms": None if library_fn is None else _device_ms(library_fn, batches=3)}
+    host_ms, plain_host_ms = _host_ms(kernel_fn), _host_ms(plain_fn, plain_runs)
+    lib = "" if library_fn is None else f" {library} {row['library_ms'] * 1e3:.2f} us"
+    print(f"[kernels] {label}: {choice}max_abs_err {row['max_abs_err']:.3e} "
+          f"(bound {tol:g}·(1 + |plain|)){' same bits twice' if same_bits else ''}; "
+          f"device kernel {row['ms'] * 1e3:.2f} us plain {row['plain_ms'] * 1e3:.2f} us{lib} "
+          f"least {row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, by {row['bound_by']}: "
+          f"{row['bound_ms'] / row['ms']:.0%} of it reached); "
           f"per call from the host kernel {host_ms * 1e3:.1f} us plain "
           f"{plain_host_ms * 1e3:.1f} us [{smi}]")
-    return float(err.max()), ms, plain_ms
+    return row
 
 
 def slice_problem(n_nodes=None):
@@ -259,14 +315,26 @@ def _operator(general, dev, expect):
     return op
 
 
-def _kernels_ell(smi, dev, rng):
+def _csr_of_pool(data_t, idx_t, n_minor):
+    """The K-major ELL pool as a sparse CSR matrix [n, n_minor] (one row per
+    pool element, padding slots kept): the operand of the ``torch.mv``
+    yardstick.  The port never builds one."""
+    import torch
+
+    K, n = data_t.shape
+    crow = torch.arange(n + 1, dtype=torch.int32, device=data_t.device) * K
+    return torch.sparse_csr_tensor(crow, idx_t.T.contiguous().reshape(-1),
+                                   data_t.T.contiguous().reshape(-1), size=(n, n_minor),
+                                   check_invariants=False)
+
+
+def _kernels_ell(smi, dev, rng, op):
     import torch
 
     from relp_tpu_torch.ops.sparse_kernels import (
         ell_price, ell_price_plain, ell_spmv, ell_spmv_plain,
     )
 
-    op = _operator(slice_problem()[0], dev, "ell")
     m_pad, n_pad = op.shape
     # a K = 8 column pool at the slice's width, rows spread over m
     K8_rows = torch.as_tensor(rng.integers(0, m_pad, (8, n_pad)).astype("int32"), device=dev)
@@ -278,51 +346,61 @@ def _kernels_ell(smi, dev, rng):
     y = torch.as_tensor(rng.standard_normal(m_pad), device=dev)
     c = torch.as_tensor(rng.standard_normal(n_pad), device=dev)
     x = torch.as_tensor(rng.standard_normal(n_pad), device=dev)
+    mv = "torch.mv(sparse CSR)"
     report = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         tag = "f32" if dtype == torch.float32 else "f64"
         yd, cd, xd = y.to(dtype), c.to(dtype), x.to(dtype)
         for pool, (data_t, rows_t) in pools.items():
             dd = data_t.to(dtype).contiguous()
+            csr = _csr_of_pool(dd, rows_t, m_pad)
+            common = dict(flops=2 * dd.numel(), tag=tag, library_fn=lambda: torch.mv(csr, yd),
+                          library=mv, same_bits=True)
             report[("ell_price", tag, "c", pool)] = _compare(
                 f"ell_price {tag} c-d {pool}",
                 lambda: ell_price(dd, rows_t, yd, cd),
-                lambda: ell_price_plain(dd, rows_t, yd, cd), tol, smi)
+                lambda: ell_price_plain(dd, rows_t, yd, cd), tol, smi,
+                nbytes=_nbytes(dd, rows_t, yd, cd, cd), **common)
             report[("ell_price", tag, "sum", pool)] = _compare(
                 f"ell_price {tag} sum {pool}",
                 lambda: ell_price(dd, rows_t, yd),
-                lambda: ell_price_plain(dd, rows_t, yd), tol, smi)
+                lambda: ell_price_plain(dd, rows_t, yd), tol, smi,
+                nbytes=_nbytes(dd, rows_t, yd, cd), **common)
         # partial pricing's window: one block of four, c of the block
         dd = op.data_t.to(dtype).contiguous()
         w = n_pad // 4
         cw = cd[w:2 * w]
+        csr_w = _csr_of_pool(dd[:, w:2 * w].contiguous(), op.rows_t[:, w:2 * w].contiguous(), m_pad)
         _compare(f"ell_price {tag} c-d window [{w}, {2 * w}) of the slice pool",
                  lambda: ell_price(dd, op.rows_t, yd, cw, w, w),
-                 lambda: ell_price_plain(dd, op.rows_t, yd, cw, w, w), tol, smi)
+                 lambda: ell_price_plain(dd, op.rows_t, yd, cw, w, w), tol, smi,
+                 nbytes=_nbytes(dd, op.rows_t) // 4 + _nbytes(yd, cw, cw), flops=dd.numel() // 2,
+                 tag=tag, library_fn=lambda: torch.mv(csr_w, yd), library=mv, same_bits=True)
         rd = op.rdata_t.to(dtype).contiguous()
+        csr_r = _csr_of_pool(rd, op.rcols_t, n_pad)
         label = f"K={op.rdata_t.shape[0]} m={m_pad} n={n_pad}"
         report[("ell_spmv", tag, "slice")] = _compare(
             f"ell_spmv {tag} slice {label}",
             lambda: ell_spmv(rd, op.rcols_t, xd),
-            lambda: ell_spmv_plain(rd, op.rcols_t, xd), tol, smi)
+            lambda: ell_spmv_plain(rd, op.rcols_t, xd), tol, smi,
+            nbytes=_nbytes(rd, op.rcols_t, xd) + m_pad * xd.element_size(),
+            flops=2 * rd.numel(), tag=tag, library_fn=lambda: torch.mv(csr_r, xd), library=mv)
     slice_pool = next(iter(pools))
-    # the per-iteration hot launches of the slice: f32 fused pricing, f64 A·x
+    # the slice's launches: the f32 devex row (the sum) and the f64 A·x
     return {
-        "ell_price": report[("ell_price", "f32", "c", slice_pool)],
+        "ell_price": report[("ell_price", "f32", "sum", slice_pool)],
         "ell_spmv": report[("ell_spmv", "f64", "slice")],
     }
 
 
-def _kernels_dense(smi, dev, rng):
+def _kernels_dense(smi, dev, rng, op):
     """``dense_price`` at the dense LP's operator, on a partial-pricing
     window of it and at a wide shape.  Nonnegative inputs, as the LP's are,
     keep the f32 sums' error relative to their size."""
     import torch
 
-    from relp_tpu_torch.models.dense import dense_lp
     from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_plain
 
-    op = _operator(dense_lp(*DENSE_SHAPE), dev, "dense")
     m_pad, n_pad = op.shape
     wide = torch.as_tensor(rng.uniform(0.05, 1.0, (2048, 16384)), device=dev)
     cases = {  # label -> (A, j0, w)
@@ -336,18 +414,132 @@ def _kernels_dense(smi, dev, rng):
         tag = "f32" if dtype == torch.float32 else "f64"
         for label, (A, j0, w) in cases.items():
             Ad = A.to(dtype).contiguous()
-            v = torch.as_tensor(rng.uniform(0.0, 1.0, Ad.shape[0]), dtype=dtype, device=dev)
+            m = Ad.shape[0]
+            v = torch.as_tensor(rng.uniform(0.0, 1.0, m), dtype=dtype, device=dev)
             c = torch.as_tensor(rng.uniform(0.0, 1.0, w), dtype=dtype, device=dev)
+            At = Ad[:, j0:j0 + w].t()
+            window_bytes = m * w * Ad.element_size()
+            common = dict(flops=2 * m * w, tag=tag, same_bits=True)
             report[(tag, "c", label)] = _compare(
                 f"dense_price {tag} c-d {label}",
                 lambda: dense_price(Ad, v, c, j0, w),
-                lambda: dense_price_plain(Ad, v, c, j0, w), tol, smi)
+                lambda: dense_price_plain(Ad, v, c, j0, w), tol, smi,
+                nbytes=window_bytes + _nbytes(v, c, c),
+                library_fn=lambda: torch.addmv(c, At, v, alpha=-1),
+                library="torch.addmv(c, A.t(), v, alpha=-1)", **common)
             report[(tag, "sum", label)] = _compare(
                 f"dense_price {tag} sum {label}",
                 lambda: dense_price(Ad, v, None, j0, w),
-                lambda: dense_price_plain(Ad, v, None, j0, w), tol, smi)
-    # the dense path's hot launch: the f32 scan over the whole operator
-    return {"dense_price": report[("f32", "c", next(iter(cases)))]}
+                lambda: dense_price_plain(Ad, v, None, j0, w), tol, smi,
+                nbytes=window_bytes + _nbytes(v, c),
+                library_fn=lambda: torch.mv(At, v), library="torch.mv(A.t(), v)", **common)
+    # the dense path's launch of this wrapper: the f32 devex row (the sum)
+    return {"dense_price": report[("f32", "sum", next(iter(cases)))]}
+
+
+def _mid_solve_state(general, dev, iters):
+    """``(selection, π, c_eff)`` as the engine's pricing meets them at
+    iteration ``iters`` of a default-config solve of ``general``."""
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.ops.select_epilogue import Selection
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex.core import PrimalKernel
+    from relp_tpu_torch.simplex.driver import solve_computational_form
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    presolve(general)
+    cf = build_computational_form(general, scale=True)
+    seen = []
+    price = PrimalKernel._price
+
+    def watched(self, s, c_eff, vs):
+        if self.steps == iters - 1:
+            sel = Selection(s.vstat.clone(), self.can_enter, s.w.clone(), s.bland.clone(),
+                            self.cfg.eps_dual, self.cfg.pricing == "devex")
+            seen.append((sel, s.pi.clone(), c_eff.clone()))
+        return price(self, s, c_eff, vs)
+
+    PrimalKernel._price = watched
+    try:
+        solve_computational_form(cf, SolverConfig(max_iter=iters), device=dev)
+    finally:
+        PrimalKernel._price = price
+    if len(seen) != 1:
+        raise AssertionError(f"[kernels] the solve priced {len(seen)} times at iteration {iters}")
+    return seen[0]
+
+
+def _kernels_select(smi, dev, ell_op, ell_general, dense_op, dense_general):
+    """Both ``_select`` routes against their plain versions: on the two
+    operators with a real mid-solve state (the f32 scan, a partial-pricing
+    window of it and the f64 pass), and on made-up ties."""
+    import torch
+
+    from relp_tpu_torch.ops.dense_kernels import dense_price_select, dense_price_select_plain
+    from relp_tpu_torch.ops.select_epilogue import Selection
+    from relp_tpu_torch.ops.sparse_kernels import (
+        ell_price_plain, ell_price_select, ell_price_select_plain,
+    )
+
+    report = {}
+    for name, op, general in (("ell", ell_op, ell_general), ("dense", dense_op, dense_general)):
+        sel, pi, c_eff = _mid_solve_state(general, dev, MID_SOLVE_ITERS)
+        op = op.with_f32()
+        m_pad, n_pad = op.shape
+        nonbasic = int(((sel.vstat[:n_pad] != 2) & sel.can_enter).sum())
+        print(f"[kernels] {name} operator at iteration {MID_SOLVE_ITERS}: {nonbasic} of {n_pad} "
+              f"columns may enter, Bland {bool(sel.bland)}, max devex weight "
+              f"{float(sel.w.max()):.3g}, |c_eff| max {float(c_eff.abs().max()):.3g}")
+        side = 17 * n_pad  # vstat (8), can_enter (1) and w (8) per column
+        for tag, tol, j0, w in (("f32", F32_TOL, 0, n_pad), ("f32", F32_TOL, n_pad // 4, n_pad // 4),
+                                ("f64", F64_TOL, 0, n_pad)):
+            v = pi.float() if tag == "f32" else pi
+            c = (c_eff.float() if tag == "f32" else c_eff)[j0:j0 + w].contiguous()
+            if name == "ell":
+                pool = (op.data32_t if tag == "f32" else op.data_t), op.rows_t
+                kernel, plain = ell_price_select, ell_price_select_plain
+                nbytes = _nbytes(*pool) * w // n_pad + _nbytes(v, c) + side * w // n_pad
+                flops = 2 * pool[0].numel() * w // n_pad
+                scale = float(ell_price_plain(pool[0].abs(), pool[1], v.abs(), None, j0, w).max())
+            else:
+                pool = (op.A32 if tag == "f32" else op.A,)
+                kernel, plain = dense_price_select, dense_price_select_plain
+                nbytes = m_pad * w * pool[0].element_size() + _nbytes(v, c) + side * w // n_pad
+                flops = 2 * m_pad * w
+                scale = float((v.abs() @ pool[0][:, j0:j0 + w].abs()).max())
+            label = f"{name}_price_select {tag} [{j0}, {j0 + w}) of {m_pad}x{n_pad}, mid-solve state"
+            report[(name, tag, j0)] = _compare(
+                label, lambda: kernel(*pool, v, c, *sel, j0, w),
+                lambda: plain(*pool, v, c, *sel, j0, w), tol, smi,
+                nbytes=nbytes, flops=flops, tag=tag, same_bits=True, scale=scale, plain_runs=10)
+
+    # made-up ties: every score equal over many blocks, then Bland's rule,
+    # then nothing that may enter
+    m, n = 64, 40000
+    zeros = torch.zeros(m, dtype=torch.float32, device=dev)
+    c = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    pools = {"ell": (torch.zeros((2, n), dtype=torch.float32, device=dev),
+                     torch.zeros((2, n), dtype=torch.int32, device=dev)),
+             "dense": (torch.zeros((m, n), dtype=torch.float32, device=dev),)}
+    vstat = torch.zeros(n + m, dtype=torch.int64, device=dev)
+    vstat[:5000] = 2
+    for bland, basic, want in ((False, False, (5000, True)), (True, False, (5000, True)),
+                               (False, True, (0, False))):
+        sel = Selection(torch.full_like(vstat, 2) if basic else vstat,
+                        torch.ones(n, dtype=torch.bool, device=dev),
+                        torch.ones(n, dtype=torch.float64, device=dev),
+                        torch.tensor(bland, device=dev), 1e-9, True)
+        for name, kernel in (("ell", ell_price_select), ("dense", dense_price_select)):
+            q, has, d_q = kernel(*pools[name], zeros, c, *sel)
+            torch.cuda.synchronize()
+            if (int(q), bool(has), float(d_q)) != (*want, -1.0):
+                raise AssertionError(f"[kernels] {name}_price_select on ties (Bland {bland}, all "
+                                     f"basic {basic}): ({int(q)}, {bool(has)}, {float(d_q)})")
+    print(f"[kernels] ties over {n} equal scores: both select kernels take the lowest column "
+          "(devex and Bland), and the window's first column when nothing may enter")
+    # the main path's launches of these wrappers: the f32 scan of the pool
+    return {"ell_price_select": report[("ell", "f32", 0)],
+            "dense_price_select": report[("dense", "f32", 0)]}
 
 
 def _kernels_probe(smi, dev):
@@ -362,7 +554,10 @@ def _kernels_probe(smi, dev):
                             ("probe_scale_f64", probe_scale_f64, torch.float64)):
         x = torch.linspace(-1.0, 1.0, 8 * 128, dtype=dtype, device=dev).reshape(8, 128)
         report[name] = _compare(f"{name} [8, 128]", lambda: fn(x),
-                                lambda: probe_scale_plain(x), 0.0, smi)
+                                lambda: probe_scale_plain(x), 0.0, smi,
+                                nbytes=2 * _nbytes(x), flops=x.numel(),
+                                tag="f32" if dtype == torch.float32 else "f64",
+                                library_fn=lambda: torch.mul(x, 2.0), library="torch.mul(x, 2)")
     return report
 
 
@@ -371,10 +566,16 @@ def phase_kernels(smi):
     import numpy as np
     import torch
 
+    from relp_tpu_torch.models.dense import dense_lp
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    timings = _kernels_ell(smi, dev, rng)
-    timings.update(_kernels_dense(smi, dev, rng))
+    ell_op = _operator(slice_problem()[0], dev, "ell")
+    dense_op = _operator(dense_lp(*DENSE_SHAPE), dev, "dense")
+    timings = _kernels_ell(smi, dev, rng, ell_op)
+    timings.update(_kernels_dense(smi, dev, rng, dense_op))
+    timings.update(_kernels_select(smi, dev, ell_op, slice_problem()[0], dense_op,
+                                   dense_lp(*DENSE_SHAPE)))
     timings.update(_kernels_probe(smi, dev))
     torch.cuda.empty_cache()
     return timings
@@ -427,19 +628,22 @@ def phase_slice(smi, launches):
 
     general, flow = slice_problem()
     torch.cuda.reset_peak_memory_stats()
-    with counted(("ell_price", "ell_spmv"), launches):
+    with counted(("ell_price", "ell_price_select", "ell_spmv"), launches):
         res, wall = _solve_file(general, f"maxflow_{N_NODES}")
     obj = _check_optimal("slice", res, "ell")
     met = res.simplex.metrics
     if abs(obj - flow) > 1e-6:
         raise AssertionError(f"[slice] objective {obj!r} != max-flow value {flow!r}")
     if min(launches["ell_price"], launches["ell_spmv"]) < 1 or \
-            launches["ell_price"] < met.iterations:
+            launches["ell_price_select"] < met.iterations:
         raise AssertionError(f"[slice] launches {launches} for {met.iterations} iterations")
     print(f"[slice] max-flow N={N_NODES} seed={SEED}: m={met.m} n={met.n} nnz={met.nnz} "
           f"(padded {met.m_padded}x{met.n_padded}) objective {obj:.12g} == scipy {flow:.12g}")
     _report_solve("slice", res, wall, smi)
-    print(f"[slice] launches ell_price {launches['ell_price']} ell_spmv {launches['ell_spmv']}")
+    its = max(met.iterations, 1)
+    print(f"[slice] launches ell_price_select {launches['ell_price_select']} "
+          f"({launches['ell_price_select'] / its:.3f}/iter) ell_price {launches['ell_price']} "
+          f"({launches['ell_price'] / its:.3f}/iter) ell_spmv {launches['ell_spmv']}")
 
 
 def _highs_objective(m, n):
@@ -454,29 +658,30 @@ def _highs_objective(m, n):
     return float(ref.fun)
 
 
-def phase_dense(smi, launches):
+def phase_dense(smi, launches, highs):
     import torch
 
     from relp_tpu_torch.models.dense import dense_lp
 
     m, n = DENSE_SHAPE
-    highs = _highs_objective(m, n)
+    highs = highs.result()
     torch.cuda.reset_peak_memory_stats()
-    with counted(("dense_price",), launches):
+    with counted(("dense_price", "dense_price_select"), launches):
         res, wall = _solve_file(dense_lp(m, n), f"dense_{m}x{n}")
     obj = _check_optimal("dense", res, "dense")
     met = res.simplex.metrics
     if abs(obj - highs) > OBJ_REL * abs(highs):
         raise AssertionError(f"[dense] objective {obj!r} != HiGHS {highs!r}")
-    if launches["dense_price"] < met.iterations:
-        raise AssertionError(f"[dense] dense_price launched {launches['dense_price']} "
-                             f"times in {met.iterations} iterations")
+    if min(launches["dense_price"], launches["dense_price_select"]) < met.iterations:
+        raise AssertionError(f"[dense] launches {launches} for {met.iterations} iterations")
     print(f"[dense] dense LP {m}x{n}: m={met.m} n={met.n} (padded "
           f"{met.m_padded}x{met.n_padded}) objective {obj:.15g} HiGHS {highs:.15g} "
           f"rel {abs(obj - highs) / abs(highs):.2e}")
     _report_solve("dense", res, wall, smi)
-    print(f"[dense] launches dense_price {launches['dense_price']} "
-          f"({launches['dense_price'] / max(met.iterations, 1):.3f}/iter)")
+    its = max(met.iterations, 1)
+    print(f"[dense] launches dense_price_select {launches['dense_price_select']} "
+          f"({launches['dense_price_select'] / its:.3f}/iter) dense_price "
+          f"{launches['dense_price']} ({launches['dense_price'] / its:.3f}/iter)")
 
 
 def phase_options(smi):
@@ -542,24 +747,28 @@ def main() -> int:
     import torch
 
     launches = {}
-    phase_build()
-    phase_probe(launches)
-    timings = phase_kernels(smi)
-    phase_slice(smi, launches)
-    phase_dense(smi, launches)
-    phase_options(smi)
-    phase_cli()
+    timings = {}
+    # HiGHS takes its time over the dense LP on the host: a second process
+    # solves it while the device phases run, and leaves once it has answered
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    highs = pool.submit(_highs_objective, *DENSE_SHAPE)
+    pool.shutdown(wait=False)
+    for phase in (phase_build, lambda: phase_probe(launches),
+                  lambda: timings.update(phase_kernels(smi)),
+                  lambda: phase_slice(smi, launches),
+                  lambda: phase_dense(smi, launches, highs),
+                  lambda: phase_options(smi), phase_cli):
+        t0 = time.perf_counter()
+        phase()
+        print(f"[time] {time.perf_counter() - t0:.1f} s", flush=True)
     if "jax" in sys.modules or "relp_tpu" in sys.modules:
         raise AssertionError("the smoke run imported JAX or the JAX package")
     if min(launches[name] for name in KERNELS) < 1:
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
 
     kernels = [
-        {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": timings[name][0],
-            "ms": timings[name][1], "plain_ms": timings[name][2],
-        }
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], **timings[name]}
         for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -3,127 +3,290 @@
 // For a row-major, contiguous A[m, lda] (the DenseMatrix layout) and a
 // column window [j0, j0 + w):
 //
-//   out[j] = c[j] - sum_i v[i] * A[i, j0 + j]   (c given, length w)
-//   out[j] =        sum_i v[i] * A[i, j0 + j]   (c == NULL)
+//   d[j] = c[j] - sum_i v[i] * A[i, j0 + j]   (c given, length w)
+//   d[j] =        sum_i v[i] * A[i, j0 + j]   (c == NULL)
 //
-// It prices the dense operator: d = c - A^T pi in f64 (the fallback pass),
-// the f32 scan c - A^T v and the f32 devex pivot row A^T B^-1[r,:], and with
-// a window the one block of columns that partial pricing scans.  Replaces
-// pricing_kernel (tools/probe_pallas.py), whose grid of 256-column blocks
-// is the window here.
+// and then either out[j] = d[j], or (c given, a SelectArgs passed) the
+// entering column chosen from d by the selection epilogue
+// (select_epilogue.cuh), with d never written.  It prices the dense
+// operator: d = c - A^T pi in f64 (the fallback pass), the f32 scan
+// c - A^T v and the f32 devex pivot row A^T B^-1[r,:], and with a window the
+// one block of columns that partial pricing scans.  Replaces pricing_kernel
+// (tools/probe_pallas.py), whose grid of 256-column blocks is the window
+// here, and the argmax that XLA fused onto its output.
 //
-// What bounds it: a matrix-vector product reads every entry of the window
-// once and reuses nothing but v, so it is bound by device-memory bandwidth
-// at large shapes (2048 x 16384 f32 is 128 MiB) and by launch latency at
-// the solver's dense shapes (768 x 1536 f32 is 4.5 MiB).
+// What bounds it: bytes.  A matrix-vector product reads every entry of the
+// window once (m * w * sizeof(T); 2048 x 16384 f32 is 134 MB, 40 us at
+// 3.35 TB/s) and reuses nothing but v.  At the solver's dense shapes
+// (768 x 1536 f32 is 4.7 MB, 1.4 us) the launch and the latency of one
+// dependent chain of loads bound it.
 //
-// What the design does about it: neighbouring threads take neighbouring
-// columns and walk the rows, so every row segment a warp reads is one
-// coalesced 128-byte (f32) or 256-byte (f64) load.  v is staged in shared
-// memory in tiles of kStage rows.  A block owns kCols columns and splits its
-// rows over kWarps warps; a narrow window (n = 1536 gives only 48 column
-// blocks for 132 SMs) also splits the rows over a second grid dimension of
-// `slices`.  Partial sums are combined in a fixed order -- the warps of a
-// block in shared memory, then the slices in a second small kernel -- and
-// never with atomics, so the result is the same from run to run and pivot
-// choices repeat.  Later work: wider loads (TMA), a fused devex argmax.
+// What the design does about it:
+// - 16-byte loads.  A thread owns 4 (f32) or 2 (f64) neighbouring columns,
+//   so a warp reads 512 bytes of a row with one instruction, and kUnroll
+//   independent rows are in flight per thread.  A block is one such warp
+//   column (128 or 64 columns) times kWarps warps that split its rows.
+// - A window whose first element or row stride is not 16-byte aligned (a
+//   partial-pricing window at any j0, hybrid's spill block of any width)
+//   runs the same kernel with 4- or 8-byte loads, lanes on neighbouring
+//   columns; a ragged last vector of an aligned window does the same for
+//   that thread alone.
+// - One launch.  A narrow window (n = 1536 gives 12 column blocks for 132
+//   SMs) splits the rows over a second grid dimension of `slices`.  Each
+//   block writes its partial sums to scratch and takes a ticket on its
+//   column block's counter; the block that draws the last ticket adds
+//   the partials in a fixed order and finishes the column block.  Atomics
+//   only count arrivals: every sum runs in an order fixed by the shapes, so
+//   two runs give the same bits and pivot choices repeat.
+// - The selection epilogue: the finishing block scores its columns in
+//   registers (their statuses and weights loaded while the rows stream) and
+//   the candidates meet through one slot per column block.
 //
 // Built by relp_tpu_torch/ops/cuda_build.py into a shared library with a
 // plain C interface; every entry point launches on the given stream, does
-// not synchronise, allocates nothing (the caller passes the `partial`
-// scratch of slices * w elements when slices > 1), and returns
-// cudaGetLastError().
+// not synchronise, allocates nothing (the caller passes `partial`, slices *
+// w elements, and `counters`, one zeroed unsigned per column block, when
+// slices > 1), and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "select_epilogue.cuh"
+
 namespace {
 
-constexpr int kCols = 32;     // columns of a block: one warp-wide row segment
-constexpr int kWarps = 8;     // warps that split a block's rows
-constexpr int kStage = 1024;  // rows of v staged in shared memory at a time
-constexpr int kFinishThreads = 256;
+using relp::Cand;
+using relp::SelectArgs;
+
+constexpr int kWarps = 8;   // warps that split a block's rows
+#ifndef RELP_DENSE_UNROLL
+#define RELP_DENSE_UNROLL 4
+#endif
+constexpr int kUnroll = RELP_DENSE_UNROLL;  // rows in flight per thread
+constexpr int kThreads = 32 * kWarps;
+
+template <typename T> struct Vec;
+template <> struct Vec<float> { using type = float4; static constexpr int n = 4; };
+template <> struct Vec<double> { using type = double2; static constexpr int n = 2; };
+
+__device__ __forceinline__ void unpack(const float4& t, float (&x)[4]) {
+  x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+}
+__device__ __forceinline__ void unpack(const double2& t, double (&x)[2]) {
+  x[0] = t.x; x[1] = t.y;
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kCols * kWarps)
-dense_colsum_kernel(const T* __restrict__ A, const T* __restrict__ v,
-                    const T* __restrict__ c, T* __restrict__ out,
-                    T* __restrict__ partial, int m, int64_t lda, int64_t j0,
-                    int64_t w, int rows_per_slice) {
-  __shared__ T v_s[kStage];
-  __shared__ T red[kWarps][kCols];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kCols + tx;
-  const bool live = j < w;
-  const int row_begin = static_cast<int>(blockIdx.y) * rows_per_slice;
-  const int row_end = min(m, row_begin + rows_per_slice);
-  const T* __restrict__ col = A + j0 + (live ? j : 0);
+struct DenseArgs {
+  const T* A;
+  const T* v;
+  const T* c;            // null: the sum alone
+  T* out;                // null under the selection epilogue
+  T* partial;            // [slices, w] scratch when slices > 1
+  unsigned int* counters;  // one per column block when slices > 1; zero at rest
+  int m;
+  int64_t lda, j0, w;
+  int slices, rows_per_slice;
+  int vector;            // the window's rows are 16-byte aligned
+};
 
-  T acc = T(0);
-  for (int base = row_begin; base < row_end; base += kStage) {
-    const int len = min(kStage, row_end - base);
-    for (int t = ty * kCols + tx; t < len; t += kCols * kWarps) {
-      v_s[t] = v[base + t];
-    }
-    __syncthreads();
-    if (live) {
-      for (int t = ty; t < len; t += kWarps) {
-        acc += v_s[t] * col[static_cast<int64_t>(base + t) * lda];
-      }
-    }
-    __syncthreads();
-  }
-  red[ty][tx] = acc;
-  __syncthreads();
-  if (ty == 0 && live) {
-    T sum = red[0][tx];
-#pragma unroll
-    for (int k = 1; k < kWarps; ++k) sum += red[k][tx];
-    if (partial != nullptr) {
-      partial[static_cast<int64_t>(blockIdx.y) * w + j] = sum;
+// acc[k] += sum over this warp's rows of v[i] * (the thread's k-th column).
+// `p` points at the thread's first column in row `row`; VLOAD reads the V
+// columns with one 16-byte load, otherwise `live` columns `step` apart are
+// read one by one.
+template <typename T, bool VLOAD>
+__device__ __forceinline__ void accumulate(const T* __restrict__ p,
+                                           const T* __restrict__ v, int row,
+                                           int row_end, int64_t lda, int step,
+                                           int live, T (&acc)[Vec<T>::n]) {
+  constexpr int V = Vec<T>::n;
+  using VT = typename Vec<T>::type;
+  auto load = [&](const T* q, T (&x)[V]) {
+    if constexpr (VLOAD) {
+      unpack(__ldg(reinterpret_cast<const VT*>(q)), x);
     } else {
-      out[j] = (c != nullptr) ? c[j] - sum : sum;
+#pragma unroll
+      for (int k = 0; k < V; ++k) x[k] = k < live ? __ldg(q + k * step) : T(0);
     }
+  };
+  const int64_t hop = lda * kWarps;
+  for (; row + (kUnroll - 1) * kWarps < row_end; row += kUnroll * kWarps) {
+    T x[kUnroll][V];
+    T vi[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      load(p + u * hop, x[u]);
+      vi[u] = __ldg(v + row + u * kWarps);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] += vi[u] * x[u][k];
+    }
+    p += kUnroll * hop;
+  }
+  for (; row < row_end; row += kWarps) {
+    T x[V];
+    load(p, x);
+    const T vi = __ldg(v + row);
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] += vi * x[k];
+    p += hop;
   }
 }
 
 template <typename T>
-__global__ void dense_finish_kernel(const T* __restrict__ partial,
-                                    const T* __restrict__ c,
-                                    T* __restrict__ out, int64_t w,
-                                    int slices) {
-  const int64_t j =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= w) return;
-  T sum = partial[j];
-  for (int s = 1; s < slices; ++s) sum += partial[static_cast<int64_t>(s) * w + j];
-  out[j] = (c != nullptr) ? c[j] - sum : sum;
+__global__ void __launch_bounds__(kThreads)
+dense_price_kernel(DenseArgs<T> a, SelectArgs s, int select) {
+  constexpr int V = Vec<T>::n;
+  constexpr int kBlockCols = 32 * V;
+  __shared__ T red[kWarps][kBlockCols];
+  __shared__ Cand warps_s[relp::kMaxWarps];
+  __shared__ int flag_s;
+  const int lane = threadIdx.x;
+  const int wy = threadIdx.y;
+  const int tid = wy * 32 + lane;
+  const int64_t jb = static_cast<int64_t>(blockIdx.x) * kBlockCols;
+  const int64_t w_left = a.w - jb;
+  // the thread's columns, relative to jb: col0 + k * step for k < live
+  const int col0 = a.vector ? lane * V : lane;
+  const int step = a.vector ? 1 : 32;
+  int live = 0;
+#pragma unroll
+  for (int k = 0; k < V; ++k) live += (col0 + k * step < w_left) ? 1 : 0;
+
+  const int row_begin = static_cast<int>(blockIdx.y) * a.rows_per_slice;
+  const int row_end = min(a.m, row_begin + a.rows_per_slice);
+  // what the end of the pass reads of this thread's columns, asked for
+  // before the rows so that it waits on nothing then
+  relp::SelectInputs<V> inputs;
+  if (select && wy == 0 && live > 0) inputs.load(s, a.j0 + jb + col0, step, live);
+  T cj[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    cj[k] = (a.c != nullptr && wy == 0 && k < live) ? __ldg(a.c + jb + col0 + k * step) : T(0);
+  }
+
+  T acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = T(0);
+  if (live > 0) {
+    const int row = row_begin + wy;
+    const T* p = a.A + static_cast<int64_t>(row) * a.lda + a.j0 + jb + col0;
+    if (a.vector && live == V) {
+      accumulate<T, true>(p, a.v, row, row_end, a.lda, step, live, acc);
+    } else {
+      accumulate<T, false>(p, a.v, row, row_end, a.lda, step, live, acc);
+    }
+  }
+
+  // the block's warps, in warp order, into warp 0
+  T sum[V];
+  auto fold_warps = [&](const T (&mine)[V]) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) red[wy][lane * V + k] = mine[k];
+    __syncthreads();
+    if (wy == 0) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        T t = red[0][lane * V + k];
+#pragma unroll
+        for (int y = 1; y < kWarps; ++y) t += red[y][lane * V + k];
+        sum[k] = t;
+      }
+    }
+  };
+  fold_warps(acc);
+
+  if (a.slices > 1) {
+    // the row slices of this column block meet through `partial`; the block
+    // that draws the last ticket adds them: thread (wy, lane) the slices wy,
+    // wy + kWarps, ... in ascending order, then the warps in warp order
+    if (wy == 0) {
+      T* mine = a.partial + static_cast<int64_t>(blockIdx.y) * a.w + jb + col0;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (k < live) __stcg(mine + k * step, sum[k]);
+      }
+    }
+    __syncthreads();
+    unsigned int* counter = a.counters + blockIdx.x;
+    if (tid == 0) {
+      flag_s = relp::take_ticket(counter) == static_cast<unsigned>(a.slices) - 1 ? 1 : 0;
+    }
+    __syncthreads();
+    if (flag_s == 0) return;
+    T part[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) part[k] = T(0);
+    for (int sl = wy; sl < a.slices; sl += kWarps) {
+      const T* theirs = a.partial + static_cast<int64_t>(sl) * a.w + jb + col0;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (k < live) part[k] += __ldcg(theirs + k * step);
+      }
+    }
+    fold_warps(part);
+    if (tid == 0) *counter = 0u;  // at rest again for the next launch
+  }
+
+  // finish the column block: d, then out or the block's candidate
+  Cand best = relp::no_candidate();
+  if (wy == 0) {
+    T d[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      d[k] = T(0);
+      if (k < live) {
+        const int64_t j = jb + col0 + k * step;
+        d[k] = a.c != nullptr ? cj[k] - sum[k] : sum[k];
+        if (a.out != nullptr) a.out[j] = d[k];
+      }
+    }
+    if (select && live > 0) {
+      best = relp::best_of<T, V>(d, a.j0 + jb + col0, step, live, inputs, s,
+                                 *s.bland != 0);
+    }
+  }
+  if (!select) return;
+  bool owner;
+  best = relp::block_best(best, tid, kThreads, warps_s, owner);  // its barrier: flag_s was read
+  relp::select_finish<T>(best, owner, s, blockIdx.x, gridDim.x, tid, kThreads,
+                         &flag_s, warps_s);
 }
 
 template <typename T>
 int launch(const void* A, const void* v, const void* c, void* out,
-           void* partial, int m, int64_t lda, int64_t j0, int64_t w,
-           int slices, int rows_per_slice, void* stream) {
+           void* partial, void* counters, int m, int64_t lda, int64_t j0,
+           int64_t w, int slices, int rows_per_slice, const SelectArgs* sel,
+           void* stream) {
   if (w <= 0) return static_cast<int>(cudaGetLastError());
-  if (slices < 1 || rows_per_slice < 1 || (slices > 1 && partial == nullptr)) {
+  if (slices < 1 || rows_per_slice < 1 ||
+      (slices > 1 && (partial == nullptr || counters == nullptr)) ||
+      (sel != nullptr && c == nullptr) || (sel == nullptr && out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kCols, kWarps);
-  const dim3 grid(static_cast<unsigned>((w + kCols - 1) / kCols),
+  constexpr int kBlockCols = 32 * Vec<T>::n;
+  DenseArgs<T> a;
+  a.A = static_cast<const T*>(A);
+  a.v = static_cast<const T*>(v);
+  a.c = static_cast<const T*>(c);
+  a.out = static_cast<T*>(out);
+  a.partial = static_cast<T*>(partial);
+  a.counters = static_cast<unsigned int*>(counters);
+  a.m = m;
+  a.lda = lda;
+  a.j0 = j0;
+  a.w = w;
+  a.slices = slices;
+  a.rows_per_slice = rows_per_slice;
+  a.vector = reinterpret_cast<uintptr_t>(a.A + j0) % 16 == 0 &&
+             (lda * static_cast<int64_t>(sizeof(T))) % 16 == 0;
+  const dim3 block(32, kWarps);
+  const dim3 grid(static_cast<unsigned>((w + kBlockCols - 1) / kBlockCols),
                   static_cast<unsigned>(slices));
-  T* dst_partial = slices > 1 ? static_cast<T*>(partial) : nullptr;
-  dense_colsum_kernel<T><<<grid, block, 0, s>>>(
-      static_cast<const T*>(A), static_cast<const T*>(v),
-      static_cast<const T*>(c), static_cast<T*>(out), dst_partial, m, lda, j0,
-      w, rows_per_slice);
-  if (slices > 1) {
-    const int64_t blocks = (w + kFinishThreads - 1) / kFinishThreads;
-    dense_finish_kernel<T><<<static_cast<unsigned>(blocks), kFinishThreads, 0,
-                             s>>>(dst_partial, static_cast<const T*>(c),
-                                  static_cast<T*>(out), w, slices);
-  }
+  dense_price_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, sel != nullptr ? *sel : SelectArgs{}, sel != nullptr ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,19 +295,21 @@ int launch(const void* A, const void* v, const void* c, void* out,
 extern "C" {
 
 int relp_dense_price_f32(const void* A, const void* v, const void* c,
-                         void* out, void* partial, int m, int64_t lda,
-                         int64_t j0, int64_t w, int slices, int rows_per_slice,
+                         void* out, void* partial, void* counters, int m,
+                         int64_t lda, int64_t j0, int64_t w, int slices,
+                         int rows_per_slice, const SelectArgs* sel,
                          void* stream) {
-  return launch<float>(A, v, c, out, partial, m, lda, j0, w, slices,
-                       rows_per_slice, stream);
+  return launch<float>(A, v, c, out, partial, counters, m, lda, j0, w, slices,
+                       rows_per_slice, sel, stream);
 }
 
 int relp_dense_price_f64(const void* A, const void* v, const void* c,
-                         void* out, void* partial, int m, int64_t lda,
-                         int64_t j0, int64_t w, int slices, int rows_per_slice,
+                         void* out, void* partial, void* counters, int m,
+                         int64_t lda, int64_t j0, int64_t w, int slices,
+                         int rows_per_slice, const SelectArgs* sel,
                          void* stream) {
-  return launch<double>(A, v, c, out, partial, m, lda, j0, w, slices,
-                        rows_per_slice, stream);
+  return launch<double>(A, v, c, out, partial, counters, m, lda, j0, w, slices,
+                        rows_per_slice, sel, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@ Three interchangeable operator classes hold their tensors on one explicit
 ``torch.device`` and offer the engine one small interface (``matvec``,
 ``rmatvec``, ``rmatvec32``, ``rmatvec32_block``, ``price``, ``price32``,
 ``col``, ``ftran``, ``col_dot``, ``entries``, ``cols_matrix``), as in
-``relp_tpu/ops/amatrix.py``:
+``relp_tpu/ops/amatrix.py``; the dense and the ELL operator also offer
+``price_select`` and ``price32_select``:
 
 - :class:`DenseMatrix` — padded f64 A plus an optional f32 shadow.  Pricing,
   ``Aᵀv`` and the devex row go through ``dense_price``
@@ -23,7 +24,13 @@ Three interchangeable operator classes hold their tensors on one explicit
   prices through ``dense_price``.
 
 ``price(c, π)`` is ``c − πᵀA`` with the subtraction fused into the kernel;
-the JAX package writes it as ``c − rmatvec(π)``.  ``rmatvec32_block`` and
+the JAX package writes it as ``c − rmatvec(π)``.  ``price_select(c, π, sel)``
+and ``price32_select(c32, v32, sel[, bstart, bsize])`` price the same way
+and hand back the entering column ``(q, has, d_q)`` chosen by ``sel`` (a
+``Selection``, ops/select_epilogue.py) inside the pricing kernel, where the
+JAX package lets XLA fuse the argmax onto the kernel's output; the hybrid
+operator composes ``d`` from two kernels, so it has no fused route and the
+engine selects from its ``d``.  ``rmatvec32_block`` and
 ``price32`` with ``bstart``/``bsize`` price one column window ``[bstart,
 bstart+bsize)`` (partial pricing; ``c32`` then holds the window's entries),
 with the window's bounds as host ints.
@@ -36,8 +43,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from relp_tpu_torch.ops.dense_kernels import dense_price
-from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_spmv
+from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_select
+from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_price_select, ell_spmv
 
 
 def _sel(t: torch.Tensor, dim: int, q) -> torch.Tensor:
@@ -89,6 +96,12 @@ class DenseMatrix:
 
     def price32(self, c32, v32, bstart: int = 0, bsize: int | None = None):
         return dense_price(self.A32, v32, c32, bstart, bsize)
+
+    def price_select(self, c, pi, sel):
+        return dense_price_select(self.A, pi, c, *sel)
+
+    def price32_select(self, c32, v32, sel, bstart: int = 0, bsize: int | None = None):
+        return dense_price_select(self.A32, v32, c32, *sel, bstart, bsize)
 
     def col(self, q):
         return _sel(self.A, 1, q)
@@ -178,6 +191,12 @@ class EllMatrix:
 
     def price32(self, c32, v32, bstart: int = 0, bsize: int | None = None):
         return ell_price(self.data32_t, self.rows_t, v32, c32, bstart, bsize)
+
+    def price_select(self, c, pi, sel):
+        return ell_price_select(self.data_t, self.rows_t, pi, c, *sel)
+
+    def price32_select(self, c32, v32, sel, bstart: int = 0, bsize: int | None = None):
+        return ell_price_select(self.data32_t, self.rows_t, v32, c32, *sel, bstart, bsize)
 
     def _col_slots(self, q):
         return _sel(self.rows_t, 1, q).long(), _sel(self.data_t, 1, q)

@@ -5,8 +5,9 @@ by ``nvcc`` (one process per source, all started together, then one link)
 into a single shared library with a plain C interface, which is loaded
 with ``ctypes``; :data:`SIGNATURES` binds every kernel's entry points.  The
 library lands in ``relp_tpu_torch/_build/`` under a name that carries a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing here runs at import.
+hash of the sources (``*.cu`` and the ``*.cuh`` they include) and flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -32,16 +33,17 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> argument types (each returns its cudaError_t as an int)
 SIGNATURES = {
-    # sparse_kernels.cu: data, idx, y, c, out, n, j0, w, K, stream
-    "relp_ell_price_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P],
-    "relp_ell_price_f64": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P],
+    # sparse_kernels.cu: data, idx, y, c, out, n, j0, w, K, m, blocks, stage,
+    # SelectArgs* (select_epilogue.cuh; null: write out), stream
+    "relp_ell_price_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _I32, _P, _P],
+    "relp_ell_price_f64": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _I32, _P, _P],
     # sparse_kernels.cu: rdata, rcols, x, y, m, K, stream
     "relp_ell_spmv_f32": [_P, _P, _P, _P, _I64, _I32, _P],
     "relp_ell_spmv_f64": [_P, _P, _P, _P, _I64, _I32, _P],
-    # dense_kernels.cu: A, v, c, out, partial, m, lda, j0, w, slices,
-    # rows_per_slice, stream
-    "relp_dense_price_f32": [_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P],
-    "relp_dense_price_f64": [_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P],
+    # dense_kernels.cu: A, v, c, out, partial, counters, m, lda, j0, w, slices,
+    # rows_per_slice, SelectArgs* (null: write out), stream
+    "relp_dense_price_f32": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P],
+    "relp_dense_price_f64": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P],
     # probe_kernels.cu: x, out, n, stream
     "relp_probe_scale_f32": [_P, _P, _I64, _P],
     "relp_probe_scale_f64": [_P, _P, _I64, _P],
@@ -105,7 +107,7 @@ def load_kernels() -> KernelLibrary:
     """Build (if needed) and load every kernel of ``csrc/``."""
     srcs = _sources()
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + sorted(CSRC_DIR.glob("*.cuh")):  # the headers they include too
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     digest.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())

@@ -1,31 +1,49 @@
-"""Wrapper and plain version of the dense-operator CUDA kernel.
+"""Wrappers and plain versions of the dense-operator CUDA kernel.
 
 ``dense_price`` replaces ``pricing_kernel`` (``tools/probe_pallas.py``), the
 fused ``c − π@A`` over a grid of column blocks; the kernel is in
 ``relp_tpu_torch/csrc/dense_kernels.cu``.  It reads a row-major, contiguous
 ``A[m, n]`` (the ``DenseMatrix`` layout) once per call and reuses only the
-vector, so it is memory-bound at large shapes and launch-bound at the
-solver's dense shapes.  Neighbouring threads take neighbouring columns and
-walk the rows (coalesced row reads); narrow windows split the rows over a
-second grid dimension; partial sums are combined in a fixed order, never
-with atomics, so pivot choices repeat from run to run.
+vector, so bytes bound it: ``m·w·itemsize`` over the card's memory rate at
+large shapes, the launch and one chain of loads at the solver's dense
+shapes.  A thread owns 4 (f32) or 2 (f64) neighbouring columns and reads
+them with 16-byte loads, several rows in flight; narrow windows split the
+rows over a second grid dimension, and the row slices meet inside the one
+launch through a per-column-block ticket.  Every sum runs in an order fixed
+by the shapes, never through an atomic, so pivot choices repeat from run to
+run.  A window that is not 16-byte aligned takes scalar loads in the same
+kernel.
+
+``dense_price_select`` is the same pass with the selection epilogue
+(``ops/select_epilogue.py``): the entering column ``(q, has, d_q)`` comes
+out of the kernel and ``d`` is never written.
 
 A wrapper given CPU tensors computes the plain PyTorch version.  Given CUDA
-tensors it launches the kernel or raises: there is no fallback.  The
+tensors it launches the kernel or raises: there is no fallback.  Each
 wrapper counts its launches in a plain integer attribute, ``launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from relp_tpu_torch.ops.select_epilogue import (
+    Selection,
+    check_selection,
+    drop_workspace,
+    select_args,
+    select_outputs,
+    select_plain,
+    workspace,
+)
 from relp_tpu_torch.ops.sparse_kernels import window
 
 _FLOATS = (torch.float32, torch.float64)
-_COLS = 32           # columns of a kernel block (csrc kCols)
-_MIN_SLICE_ROWS = 128
+_WARPS = 8            # warps of a kernel block, which split its rows (csrc kWarps)
+_MIN_SLICE_ROWS = 16 * _WARPS  # at least sixteen rows a warp: four rounds of loads
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
 
 
@@ -55,15 +73,50 @@ def _check(A, v, c, w):
     return devices.pop()
 
 
-def slices_for(m: int, w: int) -> tuple[int, int]:
+def block_cols(itemsize: int) -> int:
+    """Columns of a kernel block: a warp of 16-byte loads (csrc kBlockCols)."""
+    return 32 * (16 // itemsize)
+
+
+def slices_for(m: int, w: int, itemsize: int = 4) -> tuple[int, int]:
     """``(slices, rows_per_slice)``: how many row slices the kernel's grid
     splits ``m`` rows into, so that a narrow window still fills the card."""
-    col_blocks = -(-w // _COLS)
+    col_blocks = max(1, -(-w // block_cols(itemsize)))
     slices = 1
     if col_blocks < _TARGET_BLOCKS:
         slices = max(1, min(-(-m // _MIN_SLICE_ROWS), -(-_TARGET_BLOCKS // col_blocks)))
     rows = max(1, -(-m // slices))
     return max(1, -(-m // rows)), rows
+
+
+def _launch(name, A, v, c, j0, w, out, sel, outs):
+    """One launch of the kernel: ``out`` (a tensor) or the selection."""
+    from relp_tpu_torch.ops.cuda_build import load_kernels, raise_on
+
+    lib = load_kernels().lib
+    dev = A.device
+    m, n = A.shape
+    itemsize = A.element_size()
+    slices, rows = slices_for(m, w, itemsize)
+    col_blocks = -(-w // block_cols(itemsize))
+    fn = lib.relp_dense_price_f32 if A.dtype == torch.float32 else lib.relp_dense_price_f64
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = None
+        if slices > 1 or sel is not None:
+            ws = workspace(dev, stream, 1 + col_blocks, col_blocks,
+                           slices * w * itemsize if slices > 1 else 0)
+        args = None if sel is None else ctypes.byref(select_args(sel, ws, outs))
+        err = fn(
+            A.data_ptr(), v.data_ptr(), None if c is None else c.data_ptr(),
+            None if out is None else out.data_ptr(),
+            ws.partial.data_ptr() if slices > 1 else None,
+            ws.block_counters_ptr if slices > 1 else None,
+            m, n, j0, w, slices, rows, args, stream,
+        )
+    if err != 0:
+        drop_workspace(dev, stream)
+    raise_on(name, err)
 
 
 def dense_price(A: torch.Tensor, v: torch.Tensor, c: Optional[torch.Tensor] = None,
@@ -78,23 +131,46 @@ def dense_price(A: torch.Tensor, v: torch.Tensor, c: Optional[torch.Tensor] = No
         return dense_price_plain(A, v, c, j0, w)
     if dev.type != "cuda":
         raise ValueError(f"dense_price: unsupported device {dev}")
-    from relp_tpu_torch.ops.cuda_build import load_kernels, raise_on
-
-    lib = load_kernels().lib
-    m, n = A.shape
     out = torch.empty(w, dtype=A.dtype, device=dev)
-    slices, rows = slices_for(m, w)
-    partial = torch.empty((slices, w), dtype=A.dtype, device=dev) if slices > 1 else None
-    fn = lib.relp_dense_price_f32 if A.dtype == torch.float32 else lib.relp_dense_price_f64
-    with torch.cuda.device(dev):
-        err = fn(
-            A.data_ptr(), v.data_ptr(), None if c is None else c.data_ptr(),
-            out.data_ptr(), None if partial is None else partial.data_ptr(),
-            m, n, j0, w, slices, rows, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    raise_on("dense_price", err)
+    _launch("dense_price", A, v, c, j0, w, out, None, None)
     dense_price.launches += 1
     return out
 
 
 dense_price.launches = 0
+
+
+def dense_price_select_plain(A, v, c, vstat, can_enter, w, bland, eps_dual, devex,
+                             j0: int = 0, w_cols: Optional[int] = None):
+    """The plain price followed by the plain selection: ``(q, has, d_q)``."""
+    sel = Selection(vstat, can_enter, w, bland, eps_dual, devex)
+    return select_plain(dense_price_plain(A, v, c, j0, w_cols), sel, j0)
+
+
+def dense_price_select(A: torch.Tensor, v: torch.Tensor, c: torch.Tensor,
+                       vstat: torch.Tensor, can_enter: torch.Tensor, w: torch.Tensor,
+                       bland: torch.Tensor, eps_dual: float, devex: bool,
+                       j0: int = 0, w_cols: Optional[int] = None):
+    """The entering column of the window ``[j0, j0+w_cols)`` priced as
+    ``dense_price(A, v, c, j0, w_cols)`` prices it: ``(q, has, d_q)`` as
+    0-dim tensors, ``q`` (int64) counted from column 0, ``has`` whether it
+    improves, ``d_q`` its reduced cost in ``A``'s type.  ``vstat`` (int64),
+    ``can_enter`` (bool) and the devex weights ``w`` (float64) are indexed by
+    pool column, ``bland`` is a 0-dim bool tensor read on the device."""
+    w_cols = window(A.shape[1] if A.dim() == 2 else 0, j0, w_cols)
+    if c is None or w_cols < 1:
+        raise ValueError("dense_price_select: needs costs c and a window of >= 1 column")
+    dev = _check(A, v, c, w_cols)
+    sel = Selection(vstat, can_enter, w, bland, eps_dual, devex)
+    check_selection("dense_price_select", sel, dev, A.shape[1])
+    if dev.type == "cpu":
+        return dense_price_select_plain(A, v, c, *sel, j0, w_cols)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_price_select: unsupported device {dev}")
+    outs = select_outputs(dev, A.dtype)
+    _launch("dense_price_select", A, v, c, j0, w_cols, None, sel, outs)
+    dense_price_select.launches += 1
+    return outs
+
+
+dense_price_select.launches = 0

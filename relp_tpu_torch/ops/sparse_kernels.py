@@ -2,14 +2,19 @@
 
 ``ell_price`` replaces ``brick_pricing_pallas`` and ``ell_spmv`` replaces
 ``brick_spmv_pallas`` (both in ``relp_tpu/ops/pallas_kernels.py``).  The
-kernels are in ``relp_tpu_torch/csrc/sparse_kernels.cu``.  Both are
-memory-bound gathers (a value and an index per slot, about 12 bytes in f32
-and 16 in f64, nothing reused but the gathered vector); at the main path's
-shapes (n ≈ 32k columns, K = 2) a launch moves under 1 MB, so launch latency
-bounds them.  Their design: one thread per output element walking its K
-slots in order over K-major pools, so that neighbouring threads read
-neighbouring addresses, with the gathered vector read through the read-only
-cache; gather, product, sum and subtraction are one launch.
+kernels are in ``relp_tpu_torch/csrc/sparse_kernels.cu``.  Both are gathers
+bound by bytes (a value and an index per slot, 8 bytes in f32 and 12 in f64,
+nothing reused but the gathered vector); at the main path's shapes (n ≈ 32k
+columns, K = 2) a launch moves under 1 MB, so the launch and the chain
+index load → gather bound them.  ``ell_price`` stages the gathered vector in
+shared memory when it fits (the TPU kernel's whole-vector VMEM residency),
+runs a few blocks per SM that stride over the columns, and reads 4
+neighbouring columns a thread with 16-byte loads; ``ell_spmv`` keeps one
+thread per row walking its slots in order.
+
+``ell_price_select`` is the pricing pass with the selection epilogue
+(``ops/select_epilogue.py``): the entering column ``(q, has, d_q)`` comes
+out of the kernel and ``d`` is never written.
 
 An ELL pool here is K-major: ``data_t[K, n]`` values and ``idx_t[K, n]``
 int32 indices, padding slots holding (index 0, value 0).  Every index must
@@ -24,11 +29,25 @@ wrapper counts its launches in a plain integer attribute, ``launches``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from relp_tpu_torch.ops.select_epilogue import (
+    Selection,
+    check_selection,
+    drop_workspace,
+    select_args,
+    select_outputs,
+    select_plain,
+    workspace,
+)
+
 _FLOATS = (torch.float32, torch.float64)
+_PRICE_CHUNK = 128 * 4         # columns a block of ell_price takes at a time (csrc)
+_PRICE_BLOCKS = 264            # at most two blocks per SM of an H100 (132 SMs)
+_STAGE_BYTES = 227 * 1024 - 2048  # dynamic shared memory a block may ask for
 
 
 def ell_price_plain(data_t: torch.Tensor, idx_t: torch.Tensor, y: torch.Tensor,
@@ -83,6 +102,40 @@ def window(n: int, j0: int, w: Optional[int]) -> int:
     return w
 
 
+def price_plan(w: int, m: int, itemsize: int) -> tuple[int, bool]:
+    """``(blocks, stage)`` of an ``ell_price`` launch over ``w`` columns that
+    gathers from a vector of ``m`` elements: the grid, and whether the vector
+    is staged in shared memory (it is whenever it fits)."""
+    blocks = max(1, min(-(-w // _PRICE_CHUNK), _PRICE_BLOCKS))
+    return blocks, m * itemsize <= _STAGE_BYTES
+
+
+def _launch_price(name, data_t, idx_t, y, c, j0, w, out, sel, outs):
+    """One launch of the pricing kernel: ``out`` (a tensor) or the selection."""
+    from relp_tpu_torch.ops.cuda_build import load_kernels, raise_on
+
+    lib = load_kernels().lib
+    dev = data_t.device
+    K, n = data_t.shape
+    blocks, stage = price_plan(w, y.shape[0], data_t.element_size())
+    fn = lib.relp_ell_price_f32 if data_t.dtype == torch.float32 else lib.relp_ell_price_f64
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = None
+        if sel is not None:
+            ws = workspace(dev, stream, 1, blocks)
+            args = ctypes.byref(select_args(sel, ws, outs))
+        err = fn(
+            data_t.data_ptr(), idx_t.data_ptr(), y.data_ptr(),
+            None if c is None else c.data_ptr(),
+            None if out is None else out.data_ptr(),
+            n, j0, w, K, y.shape[0], blocks, int(stage), args, stream,
+        )
+    if err != 0 and sel is not None:
+        drop_workspace(dev, stream)
+    raise_on(name, err)
+
+
 def ell_price(data_t: torch.Tensor, idx_t: torch.Tensor, y: torch.Tensor,
               c: Optional[torch.Tensor] = None, j0: int = 0,
               w: Optional[int] = None) -> torch.Tensor:
@@ -96,24 +149,50 @@ def ell_price(data_t: torch.Tensor, idx_t: torch.Tensor, y: torch.Tensor,
         return ell_price_plain(data_t, idx_t, y, c, j0, w)
     if dev.type != "cuda":
         raise ValueError(f"ell_price: unsupported device {dev}")
-    from relp_tpu_torch.ops.cuda_build import load_kernels, raise_on
-
-    lib = load_kernels().lib
-    K, n = data_t.shape
     out = torch.empty(w, dtype=data_t.dtype, device=dev)
-    fn = lib.relp_ell_price_f32 if data_t.dtype == torch.float32 else lib.relp_ell_price_f64
-    with torch.cuda.device(dev):
-        err = fn(
-            data_t.data_ptr(), idx_t.data_ptr(), y.data_ptr(),
-            None if c is None else c.data_ptr(), out.data_ptr(), n, j0, w, K,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    raise_on("ell_price", err)
+    _launch_price("ell_price", data_t, idx_t, y, c, j0, w, out, None, None)
     ell_price.launches += 1
     return out
 
 
 ell_price.launches = 0
+
+
+def ell_price_select_plain(data_t, idx_t, y, c, vstat, can_enter, w, bland, eps_dual,
+                           devex, j0: int = 0, w_cols: Optional[int] = None):
+    """The plain price followed by the plain selection: ``(q, has, d_q)``."""
+    sel = Selection(vstat, can_enter, w, bland, eps_dual, devex)
+    return select_plain(ell_price_plain(data_t, idx_t, y, c, j0, w_cols), sel, j0)
+
+
+def ell_price_select(data_t: torch.Tensor, idx_t: torch.Tensor, y: torch.Tensor,
+                     c: torch.Tensor, vstat: torch.Tensor, can_enter: torch.Tensor,
+                     w: torch.Tensor, bland: torch.Tensor, eps_dual: float, devex: bool,
+                     j0: int = 0, w_cols: Optional[int] = None):
+    """The entering column of the window ``[j0, j0+w_cols)`` priced as
+    ``ell_price(data_t, idx_t, y, c, j0, w_cols)`` prices it: ``(q, has,
+    d_q)`` as 0-dim tensors, ``q`` (int64) counted from column 0, ``has``
+    whether it improves, ``d_q`` its reduced cost in the pool's type.
+    ``vstat`` (int64), ``can_enter`` (bool) and the devex weights ``w``
+    (float64) are indexed by pool column, ``bland`` is a 0-dim bool tensor
+    read on the device."""
+    w_cols = window(data_t.shape[1] if data_t.dim() == 2 else 0, j0, w_cols)
+    if c is None or w_cols < 1:
+        raise ValueError("ell_price_select: needs costs c and a window of >= 1 column")
+    dev = _check("ell_price_select", data_t, idx_t, y, c, c_len=w_cols)
+    sel = Selection(vstat, can_enter, w, bland, eps_dual, devex)
+    check_selection("ell_price_select", sel, dev, data_t.shape[1])
+    if dev.type == "cpu":
+        return ell_price_select_plain(data_t, idx_t, y, c, *sel, j0, w_cols)
+    if dev.type != "cuda":
+        raise ValueError(f"ell_price_select: unsupported device {dev}")
+    outs = select_outputs(dev, data_t.dtype)
+    _launch_price("ell_price_select", data_t, idx_t, y, c, j0, w_cols, None, sel, outs)
+    ell_price_select.launches += 1
+    return outs
+
+
+ell_price_select.launches = 0
 
 
 def ell_spmv(rdata_t: torch.Tensor, rcols_t: torch.Tensor,

@@ -8,6 +8,11 @@ pool or one block of it (f32 scan with f64 confirmation under
 ratio test with bound flips, the update of the inverse with the incremental
 π, and the devex weight update.  The phase, status and pivot choices stay
 on the device as ``torch.where`` selects, so the step is straight-line.
+On the dense and the ELL operator the entering column comes out of the
+pricing kernel itself (``price_select``/``price32_select``, the selection
+epilogue of ops/select_epilogue.py), where XLA fuses the argmax onto the
+JAX package's pricing; the hybrid operator composes its reduced costs from
+two kernels, and ``_select`` chooses from them with the same arithmetic.
 
 Two inverse backends (``cfg.inverse``):
 
@@ -50,6 +55,7 @@ import torch
 
 from relp_tpu_torch.ops.amatrix import as_amatrix
 from relp_tpu_torch.ops.linalg import inverse_residual, lu_inverse, rank_one_basis_update
+from relp_tpu_torch.ops.select_epilogue import Selection
 from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.utils.config import SolverConfig
 
@@ -146,6 +152,9 @@ class PrimalKernel:
         # partial pricing needs the f32 scan and equal blocks (core.py:409-411)
         self.use_blocks = (cfg.price_blocks > 1 and cfg.mixed_pricing
                            and self.n % cfg.price_blocks == 0)
+        # the dense and the ELL operator choose the entering column inside
+        # their pricing kernel; hybrid prices to d and _select chooses
+        self.fused_select = hasattr(A, "price_select")
         self.steps = 0
         self.host_reads = 0
         self.viol = torch.zeros((), dtype=F64, device=self.dev)
@@ -349,19 +358,32 @@ class PrimalKernel:
         pricing as the config says (JAX core.py:371-439)."""
         A, cfg, n = self.A, self.cfg, self.n
         pi = s.pi
+        sel = Selection(s.vstat, self.can_enter, s.w, s.bland, cfg.eps_dual,
+                        cfg.pricing == "devex")
 
         def price_f64():
+            if self.fused_select:
+                return A.price_select(c_eff, pi, sel)
             d = A.price(c_eff, pi)
             q, has = self._select(d, s, vs)
             return q, has, _at(d, q)
+
+        def scan32(bstart=0, bsize=None):
+            """The f32 scan's candidate among the columns ``[bstart,
+            bstart+bsize)`` (default: all), scored in f64."""
+            win = slice(bstart, n if bsize is None else bstart + bsize)
+            c32 = c_eff[win].float()
+            if self.fused_select:
+                return A.price32_select(c32, pi.float(), sel, bstart, bsize)[:2]
+            d32 = A.price32(c32, pi.float(), bstart, bsize).to(F64)
+            return self._select(d32, s, vs[win], lo=bstart)
 
         def price_full_mixed():
             # scan in f32, confirm the chosen column's reduced cost in f64,
             # and fall back to a full f64 pass when the scan finds nothing
             # or its candidate fails confirmation (near optimality); OPTIMAL
             # is only ever declared off the f64 path
-            d32 = A.price32(c_eff.float(), pi.float()).to(F64)
-            q32, has32 = self._select(d32, s, vs)
+            q32, has32 = scan32()
             d_q64, confirmed = self._confirm64(c_eff, pi, vs, q32, has32)
             if self._read(confirmed):
                 return q32, confirmed, d_q64
@@ -372,10 +394,7 @@ class PrimalKernel:
             # iteration; the full mixed pass when it offers no confirmed
             # candidate
             bsize = n // cfg.price_blocks
-            bstart = (self.steps % cfg.price_blocks) * bsize
-            win = slice(bstart, bstart + bsize)
-            d32b = A.price32(c_eff[win].float(), pi.float(), bstart, bsize).to(F64)
-            qb, has_b = self._select(d32b, s, vs[win], lo=bstart)
+            qb, has_b = scan32((self.steps % cfg.price_blocks) * bsize, bsize)
             d_qb, confirmed_b = self._confirm64(c_eff, pi, vs, qb, has_b)
             if self._read(confirmed_b):
                 return qb, confirmed_b, d_qb

@@ -18,11 +18,18 @@ from relp_tpu_torch import api, probe
 from relp_tpu_torch.io.mps_write import export_mps
 from relp_tpu_torch.models.dense import dense_lp, dense_lp_data
 from relp_tpu_torch.models.networks import max_flow_lp, random_arcs
-from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_plain
+from relp_tpu_torch.ops.dense_kernels import (
+    dense_price,
+    dense_price_plain,
+    dense_price_select,
+    dense_price_select_plain,
+)
 from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
 from relp_tpu_torch.ops.sparse_kernels import (
     ell_price,
     ell_price_plain,
+    ell_price_select,
+    ell_price_select_plain,
     ell_spmv,
     ell_spmv_plain,
 )
@@ -102,7 +109,10 @@ def test_max_flow_on_the_card_goes_through_both_kernels(cuda, tmp_path):
     (768, 1536, 384, 384),     # one partial-pricing block of four
     (128, 1024, 256, 256),     # the probe's grid block
     (2048, 16384, 0, None),    # wide: bandwidth shows
-    (1000, 333, 5, 300),       # ragged rows, columns and window
+    (1000, 333, 5, 300),       # ragged rows, columns and window: lda % 4 != 0
+    (768, 1536, 383, 386),     # unaligned window start: the scalar edge path
+    (300, 1000, 0, 998),       # aligned rows, ragged last vector
+    (5000, 64, 0, None),       # more slices than warps meet in one column block
 ])
 def test_dense_price_matches_plain_version(cuda, dtype, tol, m, n, j0, w):
     rng = np.random.default_rng(5)
@@ -158,3 +168,113 @@ def test_dense_lp_on_the_card_goes_through_dense_price(cuda, tmp_path):
     assert res.solution.objective_value == pytest.approx(ref.fun, rel=1e-9)
     assert res.simplex.metrics.matrix_format == "dense"
     assert dense_price.launches - price0 >= res.simplex.iterations
+
+
+def _selection(rng, n, n_extra, cuda, *, bland=False, w_const=None):
+    """Seeded selection inputs over an n-column pool: every status, some
+    columns barred from entering, devex weights in [0.5, 4)."""
+    vstat = torch.as_tensor(rng.integers(0, 5, n + n_extra), device=cuda)
+    can_enter = torch.as_tensor(rng.random(n) < 0.9, device=cuda)
+    w = rng.uniform(0.5, 4.0, n) if w_const is None else np.full(n, w_const)
+    return dict(vstat=vstat, can_enter=can_enter, w=torch.as_tensor(w, device=cuda),
+                bland=torch.tensor(bland, device=cuda), eps_dual=1e-9)
+
+
+def _assert_same_choice(got, want, tol):
+    torch.cuda.synchronize()
+    (q, has, d_q), (q0, has0, d_q0) = got, want
+    assert q.dtype == torch.int64 and has.dtype == torch.bool and d_q.dtype == d_q0.dtype
+    assert (int(q), bool(has)) == (int(q0), bool(has0))
+    torch.testing.assert_close(d_q, d_q0, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("devex,bland", [(True, False), (False, False), (True, True)])
+@pytest.mark.parametrize("m,n,j0,w", [
+    (768, 1536, 0, None), (768, 1536, 384, 384), (1000, 333, 5, 300), (2048, 16384, 0, None)])
+def test_dense_price_select_matches_plain_version(cuda, dtype, tol, devex, bland, m, n, j0, w):
+    rng = np.random.default_rng(11)
+    A = torch.as_tensor(rng.uniform(-1.0, 1.0, (m, n)), dtype=dtype, device=cuda)
+    v = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=cuda)
+    width = n - j0 if w is None else w
+    c = torch.as_tensor(rng.standard_normal(width), dtype=dtype, device=cuda)
+    sel = _selection(rng, n, m, cuda, bland=bland)
+    launches = dense_price_select.launches
+    got = dense_price_select(A, v, c, **sel, devex=devex, j0=j0, w_cols=w)
+    scale = float((v.abs() @ A[:, j0:j0 + width].abs()).max())
+    _assert_same_choice(got, dense_price_select_plain(A, v, c, **sel, devex=devex, j0=j0, w_cols=w),
+                        tol * max(1.0, scale))
+    # the ticket counters are back at zero: a second launch gives the same bits
+    again = dense_price_select(A, v, c, **sel, devex=devex, j0=j0, w_cols=w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert dense_price_select.launches == launches + 2
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("devex,bland", [(True, False), (False, False), (True, True)])
+@pytest.mark.parametrize("m,n,K,j0,w", [
+    (4096, 32768, 2, 0, None),     # the max-flow slice: y staged in shared memory
+    (4096, 32768, 3, 8192, 8192),  # one partial-pricing block
+    (300, 1001, 5, 3, 990),        # n and j0 not multiples of 4: the scalar edge path
+    (70000, 8192, 4, 0, None),     # y too large for shared memory (f32: 273 KB)
+])
+def test_ell_price_select_matches_plain_version(cuda, dtype, tol, devex, bland, m, n, K, j0, w):
+    rng = np.random.default_rng(12)
+    data = torch.as_tensor(rng.standard_normal((K, n)), dtype=dtype, device=cuda)
+    idx = torch.as_tensor(rng.integers(0, m, (K, n)).astype(np.int32), device=cuda)
+    y = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=cuda)
+    width = n - j0 if w is None else w
+    c = torch.as_tensor(rng.standard_normal(width), dtype=dtype, device=cuda)
+    sel = _selection(rng, n, m, cuda, bland=bland)
+    launches = ell_price_select.launches
+    got = ell_price_select(data, idx, y, c, **sel, devex=devex, j0=j0, w_cols=w)
+    _assert_same_choice(
+        got, ell_price_select_plain(data, idx, y, c, **sel, devex=devex, j0=j0, w_cols=w),
+        10 * tol)
+    again = ell_price_select(data, idx, y, c, **sel, devex=devex, j0=j0, w_cols=w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ell_price_select.launches == launches + 2
+    # the d-writing kernel on the same pool (staged, edge and large-y paths)
+    torch.testing.assert_close(ell_price(data, idx, y, c, j0, w),
+                               ell_price_plain(data, idx, y, c, j0, w), rtol=10 * tol, atol=10 * tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_select_ties_go_to_the_lowest_column_across_blocks(cuda, dtype):
+    # equal scores over many blocks: all weights 1, all |d| equal; then a
+    # strictly better column late in the pool, then a NaN weight before it
+    m, n = 64, 40000
+    y = torch.zeros(m, dtype=dtype, device=cuda)
+    c = torch.full((n,), -1.0, dtype=dtype, device=cuda)
+    sel = dict(vstat=torch.zeros(n + m, dtype=torch.int64, device=cuda),
+               can_enter=torch.ones(n, dtype=torch.bool, device=cuda),
+               w=torch.ones(n, dtype=torch.float64, device=cuda),
+               bland=torch.tensor(False, device=cuda), eps_dual=1e-9)
+    data = torch.zeros((2, n), dtype=dtype, device=cuda)
+    idx = torch.zeros((2, n), dtype=torch.int32, device=cuda)
+    A = torch.zeros((m, n), dtype=dtype, device=cuda)
+
+    def both(j0=0, w=None):
+        out = [ell_price_select(data, idx, y, c[j0:j0 + (w or n - j0)].contiguous(), **sel,
+                                devex=True, j0=j0, w_cols=w),
+               dense_price_select(A, y, c[j0:j0 + (w or n - j0)].contiguous(), **sel,
+                                  devex=True, j0=j0, w_cols=w)]
+        torch.cuda.synchronize()
+        return [(int(q), bool(has), float(d_q)) for q, has, d_q in out]
+
+    assert both() == [(0, True, -1.0)] * 2
+    assert both(1234, 30000) == [(1234, True, -1.0)] * 2
+    sel["vstat"][:5000] = 2                      # basic: the tie starts at 5000
+    assert both() == [(5000, True, -1.0)] * 2
+    c[33333] = -2.0                              # one better column, far in
+    assert both() == [(33333, True, -2.0)] * 2
+    sel["w"][20000] = float("nan")               # NaN score: the greatest, as torch.argmax has it
+    want = dense_price_select_plain(A, y, c, **sel, devex=True)
+    assert int(want[0]) == 20000
+    assert both() == [(20000, True, -1.0)] * 2
+    sel["bland"] = torch.tensor(True, device=cuda)   # Bland: the smallest improving index
+    assert both() == [(5000, True, -1.0)] * 2
+    sel["vstat"][:] = 2                          # nothing may enter: the window's first column
+    assert both(100, 2000) == [(100, False, -1.0)] * 2

@@ -112,8 +112,11 @@ def test_grid_split_covers_every_row():
         slices, rows = slices_for(m, w)
         assert slices >= 1 and rows >= 1
         assert slices * rows >= m and (slices - 1) * rows < max(m, 1)
-    assert slices_for(2048, 16384) == (1, 2048)   # wide: one slice, one launch
+    assert slices_for(128, 1024) == (1, 128)      # short: one slice
+    assert slices_for(2048, 16384)[0] == 3       # wide: 128 column blocks, 3 slices fill the card
     assert slices_for(768, 1536)[0] > 1          # narrow: rows split over the grid
+    # f64 blocks are half as wide, so twice the column blocks want fewer slices
+    assert slices_for(2048, 16384, itemsize=8)[0] == 2
 
 
 def test_dense_price_rejects_bad_inputs():

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of relp_tpu_torch's primal iterations goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_slice.py [--nodes 4096] [--iters 600] [--out FILE]
+    python3 tools/profile_torch_slice.py [--problem maxflow|dense] [--nodes 4096]
+                                         [--iters 600] [--out FILE]
 
-Builds the seeded max-flow LP that ``chip_smoke.py`` solves, lowers it on the
+Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
+LP of ``--nodes`` nodes on the ELL operator, or the dense LP at 768 × 1536 on
+the dense operator), lowers it on the
 host (presolve, computational form), then runs the device solve for
 ``--iters`` iterations three times: a warm-up, a timed run, and a run under
 ``torch.profiler`` (CPU and CUDA activities).  Prints the wall time per
@@ -31,7 +34,8 @@ def _device_attr(avg) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nodes", type=int, default=4096)
+    ap.add_argument("--problem", choices=("maxflow", "dense"), default="maxflow")
+    ap.add_argument("--nodes", type=int, default=4096, help="size of the max-flow graph")
     ap.add_argument("--iters", type=int, default=600)
     ap.add_argument("--out", help="file for the full profiler tables")
     args = ap.parse_args(argv)
@@ -50,8 +54,14 @@ def main(argv=None) -> int:
     from relp_tpu_torch.utils.config import SolverConfig
 
     smi = chip_smoke.phase_device()
-    chip_smoke.N_NODES = args.nodes
-    general, _ = chip_smoke.slice_problem()
+    if args.problem == "maxflow":
+        general, _ = chip_smoke.slice_problem(args.nodes)
+        name = f"max-flow N={args.nodes}"
+    else:
+        from relp_tpu_torch.models.dense import dense_lp
+
+        m, n = chip_smoke.DENSE_SHAPE
+        general, name = dense_lp(m, n), f"dense LP {m}x{n}"
     presolve(general)
     cf = build_computational_form(general, scale=True)
     config = SolverConfig(max_iter=args.iters)
@@ -78,7 +88,7 @@ def main(argv=None) -> int:
     launches = sum(a.count for a in kernels)
     it = max(met.iterations, 1)
     lines = [
-        f"[profile] max-flow N={args.nodes}: m={met.m} n={met.n} "
+        f"[profile] {name}: m={met.m} n={met.n} "
         f"(padded {met.m_padded}x{met.n_padded}) format {met.matrix_format} "
         f"iterations {met.iterations} status {met.status} [{smi}]",
         f"[profile] unprofiled: wall {wall:.3f} s = {wall / it * 1e3:.3f} ms/iter; "

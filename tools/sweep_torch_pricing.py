@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Sweep the launch shapes of relp_tpu_torch's pricing kernels on one NVIDIA GPU.
+
+    python3 tools/sweep_torch_pricing.py [--out FILE]
+
+``dense_price`` and ``ell_price`` take their grids from a few constants of
+their wrappers (``ops/dense_kernels.py``: blocks aimed at, fewest rows of a
+slice; ``ops/sparse_kernels.py``: most blocks, whether the gathered vector is
+staged) and two of their sources (rows in flight per thread, threads of an
+``ell_price`` block).  This script builds the source variants, sets the
+constants in turn and prints the device time per launch of each kernel at the
+shapes of ``chip_smoke.py`` (timed as it times them), beside one PyTorch
+call on the same inputs.  The constants in the repository are the ones this
+sweep favoured; PERF.md records the readings.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="file for a copy of the lines printed")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_torch_pricing: needs an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from relp_tpu_torch.ops import cuda_build, dense_kernels, sparse_kernels
+    from relp_tpu_torch.ops.select_epilogue import Selection
+
+    smi = chip_smoke.phase_device()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(chip_smoke.SEED)
+    lines = []
+
+    def say(line):
+        print(line, flush=True)
+        lines.append(line)
+
+    def us(fn):
+        return chip_smoke._device_ms(fn, batches=3) * 1e3
+
+    def sel_for(n, m):
+        return Selection(torch.as_tensor(rng.integers(0, 5, n + m), device=dev),
+                         torch.ones(n, dtype=torch.bool, device=dev),
+                         torch.as_tensor(rng.uniform(0.5, 4.0, n), device=dev),
+                         torch.tensor(False, device=dev), 1e-9, True)
+
+    # ---- inputs: the shapes chip_smoke.py times
+    dense_cases = []
+    for label, m, n, j0, w, dtype in (
+            ("768x1536 f32", 768, 1536, 0, 1536, torch.float32),
+            ("768x1536 f64", 768, 1536, 0, 1536, torch.float64),
+            ("768x1536 f32 window 384", 768, 1536, 384, 384, torch.float32),
+            ("2048x16384 f32", 2048, 16384, 0, 16384, torch.float32),
+            ("2048x16384 f64", 2048, 16384, 0, 16384, torch.float64)):
+        A = torch.as_tensor(rng.uniform(0.05, 1.0, (m, n)), dtype=dtype, device=dev)
+        v = torch.as_tensor(rng.uniform(0.0, 1.0, m), dtype=dtype, device=dev)
+        c = torch.as_tensor(rng.uniform(0.0, 1.0, w), dtype=dtype, device=dev)
+        dense_cases.append((label, A, v, c, j0, w, sel_for(n, m)))
+    m, n, K = 4096, 32768, 2
+    idx = torch.as_tensor(rng.integers(0, m, (K, n)).astype(np.int32), device=dev)
+    ell_cases = []
+    for label, dtype in (("K=2 n=32768 m=4096 f32", torch.float32),
+                         ("K=2 n=32768 m=4096 f64", torch.float64)):
+        data = torch.as_tensor(rng.standard_normal((K, n)), dtype=dtype, device=dev)
+        y = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=dev)
+        c = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        ell_cases.append((label, data, y, c, sel_for(n, m)))
+
+    say(f"[sweep] yardsticks [{smi}]")
+    for label, A, v, c, j0, w, _ in dense_cases:
+        At = A[:, j0:j0 + w].t()
+        say(f"[sweep] dense {label}: torch.mv(A.t(), v) {us(lambda: torch.mv(At, v)):.2f} us  "
+            f"torch.addmv(c, A.t(), v, alpha=-1) "
+            f"{us(lambda: torch.addmv(c, At, v, alpha=-1)):.2f} us")
+    for label, data, y, c, _ in ell_cases:
+        csr = chip_smoke._csr_of_pool(data, idx, m)
+        say(f"[sweep] ell {label}: torch.mv(sparse CSR) {us(lambda: torch.mv(csr, y)):.2f} us")
+
+    base_flags = list(cuda_build.COMPILE_FLAGS)
+    kept = (dense_kernels._TARGET_BLOCKS, dense_kernels._MIN_SLICE_ROWS,
+            sparse_kernels._PRICE_BLOCKS, sparse_kernels._STAGE_BYTES,
+            sparse_kernels._PRICE_CHUNK)
+
+    def build(defines):
+        cuda_build.COMPILE_FLAGS[:] = base_flags + [f"-D{d}" for d in defines]
+        cuda_build.load_kernels.cache_clear()
+        cuda_build.load_kernels()
+
+    # ---- dense_price: rows in flight x blocks aimed at x fewest rows of a slice
+    for unroll in (2, 4, 8):
+        build([f"RELP_DENSE_UNROLL={unroll}"])
+        for target in (66, 132, 264, 528):
+            for min_rows in (32, 64, 128):
+                dense_kernels._TARGET_BLOCKS, dense_kernels._MIN_SLICE_ROWS = target, min_rows
+                cells = []
+                for label, A, v, c, j0, w, sel in dense_cases:
+                    slices = dense_kernels.slices_for(A.shape[0], w, A.element_size())[0]
+                    cells.append(
+                        f"{label} ({slices} slices): sum "
+                        f"{us(lambda: dense_kernels.dense_price(A, v, None, j0, w)):.2f} c-d "
+                        f"{us(lambda: dense_kernels.dense_price(A, v, c, j0, w)):.2f} select "
+                        f"{us(lambda: dense_kernels.dense_price_select(A, v, c, *sel, j0, w)):.2f}")
+                say(f"[sweep] dense unroll {unroll} target {target} min_rows {min_rows} us: "
+                    + "; ".join(cells))
+    dense_kernels._TARGET_BLOCKS, dense_kernels._MIN_SLICE_ROWS = kept[:2]
+
+    # ---- ell_price: threads of a block x most blocks x staged or not
+    for threads in (64, 128, 256):
+        build([f"RELP_ELL_THREADS={threads}"])
+        sparse_kernels._PRICE_CHUNK = 4 * threads
+        for blocks in (32, 64, 132, 264):
+            for stage_bytes in (kept[3], -1):
+                sparse_kernels._PRICE_BLOCKS, sparse_kernels._STAGE_BYTES = blocks, stage_bytes
+                cells = []
+                for label, data, y, c, sel in ell_cases:
+                    grid = sparse_kernels.price_plan(n, m, data.element_size())[0]
+                    cells.append(
+                        f"{label} ({grid} blocks): sum "
+                        f"{us(lambda: sparse_kernels.ell_price(data, idx, y)):.2f} c-d "
+                        f"{us(lambda: sparse_kernels.ell_price(data, idx, y, c)):.2f} select "
+                        f"{us(lambda: sparse_kernels.ell_price_select(data, idx, y, c, *sel)):.2f}")
+                say(f"[sweep] ell threads {threads} most blocks {blocks} "
+                    f"{'staged' if stage_bytes > 0 else 'gathered through __ldg'} us: "
+                    + "; ".join(cells))
+    (sparse_kernels._PRICE_BLOCKS, sparse_kernels._STAGE_BYTES,
+     sparse_kernels._PRICE_CHUNK) = kept[2:]
+    cuda_build.COMPILE_FLAGS[:] = base_flags
+    cuda_build.load_kernels.cache_clear()
+
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
