@@ -14,15 +14,19 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              ``2·x``, the pricing grid through ``dense_price``).
 4. kernels — every kernel against its plain PyTorch version on the card, in
              f32 and f64: ``ell_price`` (with and without ``c``, and on a
-             partial-pricing window) and ``ell_spmv`` at the max-flow
-             operator's shapes and on a K = 8 pool; ``dense_price`` (with
+             partial-pricing window) at the max-flow operator's shapes and
+             on a K = 8 pool; ``ell_spmv`` at three shapes (the max-flow
+             operator's row pool, Kr = 31 over 4,096 rows; its column pool
+             read as the rows of Aᵀ, Kr = 2 over 32,768 rows; and Kr = 31
+             over 131,072 rows, where bandwidth shows); ``dense_price`` (with
              and without ``c``) at the dense LP's operator, on a window of
-             it and at a wide 2,048 × 16,384; ``probe_scale`` at [8, 128];
+             it, at a wide 2,048 × 16,384 and at the first-order path's
+             256 × 2,048 max-flow operator; ``probe_scale`` at [8, 128];
              ``ell_price_select`` and ``dense_price_select`` (the pricing
              pass with the entering column chosen in the kernel) on the two
              operators with the state of a solve cut at 600 iterations, and
-             on made-up ties.  Each pricing kernel is run twice and must
-             give the same bits.  Device time per launch (CUDA events over
+             on made-up ties.  Each pricing kernel and ``ell_spmv`` is run
+             twice and must give the same bits.  Device time per launch (CUDA events over
              batches of 50 launches) beside the plain version's, the bound
              (the bytes the call must move at 3.35 TB/s, or its operations
              at the card's peak) and one PyTorch call as a yardstick
@@ -44,11 +48,29 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              pricing, perturbation, the trace, the invariant check) on the
              dense LP at 256 × 512, against the default config's objective;
              partial pricing also on the ELL max flow at N = 1,024.
-8. cli     — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
+8. pdlp    — the first-order engine through ``api.solve(path,
+             SolverConfig(algorithm="pdlp", ...))``: the 4,096-node max flow
+             without crossover on the ELL operator (``engine == "pdlp"``,
+             the objective within 1e-5 relative of ``scipy``'s, ``ell_price``
+             and ``ell_spmv`` each launched at least once per iteration, all
+             in f64, and of every host read of the solve one per round and
+             one before the first); the max flow at N = 1,024 under the
+             default config (``engine == "pdlp+crossover"``, the objective
+             equal to ``scipy``'s) and under ``pdlp_precision="mixed"``
+             without crossover (f32 rounds, one more read per 8 rounds for
+             their f64 KKT); the max flow at N = 256 without crossover,
+             which runs on the dense operator (``dense_price`` at least once
+             per iteration).
+9. cli     — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
 
-Launch counts: every kernel's count is set to 0 just before the path that
-runs it (probe, slice, dense) and read just after; launches made to compare
-a kernel with its plain version do not count.  Any failure raises, so the
+Launch counts: every kernel's count is set to 0 just before each path that
+runs it (probe, slice, dense, pdlp) and read just after; launches made to
+compare a kernel with its plain version do not count.  The report's
+``launches`` is the count of the path whose shape and mode the kernel's
+timed row has: ``pdlp`` at N = 4,096 for ``ell_price`` and ``ell_spmv`` (f64
+``c − Aᵀy`` and A·x), ``dense`` for ``dense_price`` (the f32 sum row); the
+other first-order runs keep their counts apart.  Every path's counts are
+printed in its phase and checked at the end.  Any failure raises, so the
 run exits nonzero without the final line.  The line before the last is the
 kernel report, one JSON object; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -75,6 +97,7 @@ SEED = 7
 DENSE_SHAPE = (768, 1536)   # the dense LP's documented default size
 OPTIONS_SHAPE = (256, 512)  # smallest dense size at which mixed pricing stays on
 OPTIONS_NODES = 1024
+PDLP_DENSE_NODES = 256  # max flow small enough for the dense operator
 TIMED_RUNS = 50
 HOLD_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at the H100's clock
 F32_TOL = 2e-5          # f32 sums run in another order (and fused) than the plain version
@@ -133,15 +156,19 @@ def _wrappers():
             "probe_scale_f32": probe_scale_f32, "probe_scale_f64": probe_scale_f64}
 
 
+PATHS = {}  # path -> {kernel: launches}: what every driven path counted
+
+
 @contextlib.contextmanager
-def counted(names, launches):
-    """Set the named kernels' counts to 0, run the path, record the counts."""
+def counted(names, launches, path):
+    """Set the named kernels' counts to 0, run the path, record the counts
+    (in ``launches`` for the report and under ``PATHS[path]``)."""
     wrappers = _wrappers()
     for name in names:
         wrappers[name].launches = 0
     yield
-    for name in names:
-        launches[name] = wrappers[name].launches
+    PATHS[path] = {name: wrappers[name].launches for name in names}
+    launches.update(PATHS[path])
 
 
 def phase_device():
@@ -178,7 +205,7 @@ def phase_probe(launches):
     from relp_tpu_torch import probe
 
     buf = io.StringIO()
-    with counted(("probe_scale_f32", "probe_scale_f64"), launches), \
+    with counted(("probe_scale_f32", "probe_scale_f64"), launches, "probe"), \
             contextlib.redirect_stdout(buf):
         rc = probe.main()
     for line in buf.getvalue().splitlines():
@@ -347,6 +374,15 @@ def _kernels_ell(smi, dev, rng, op):
     c = torch.as_tensor(rng.standard_normal(n_pad), device=dev)
     x = torch.as_tensor(rng.standard_normal(n_pad), device=dev)
     mv = "torch.mv(sparse CSR)"
+    wide_m, wide_n = 131072, 1048576
+    spmv_pools = {  # name -> (rdata_t [Kr, m], rcols_t, the vector gathered from)
+        "slice": (op.rdata_t, op.rcols_t, x),
+        "short rows": (op.data_t, op.rows_t, y),
+        "bandwidth": (
+            torch.as_tensor(rng.standard_normal((31, wide_m)), device=dev),
+            torch.as_tensor(rng.integers(0, wide_n, (31, wide_m)).astype("int32"), device=dev),
+            torch.as_tensor(rng.standard_normal(wide_n), device=dev)),
+    }
     report = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         tag = "f32" if dtype == torch.float32 else "f64"
@@ -376,27 +412,38 @@ def _kernels_ell(smi, dev, rng, op):
                  lambda: ell_price_plain(dd, op.rows_t, yd, cw, w, w), tol, smi,
                  nbytes=_nbytes(dd, op.rows_t) // 4 + _nbytes(yd, cw, cw), flops=dd.numel() // 2,
                  tag=tag, library_fn=lambda: torch.mv(csr_w, yd), library=mv, same_bits=True)
-        rd = op.rdata_t.to(dtype).contiguous()
-        csr_r = _csr_of_pool(rd, op.rcols_t, n_pad)
-        label = f"K={op.rdata_t.shape[0]} m={m_pad} n={n_pad}"
-        report[("ell_spmv", tag, "slice")] = _compare(
-            f"ell_spmv {tag} slice {label}",
-            lambda: ell_spmv(rd, op.rcols_t, xd),
-            lambda: ell_spmv_plain(rd, op.rcols_t, xd), tol, smi,
-            nbytes=_nbytes(rd, op.rcols_t, xd) + m_pad * xd.element_size(),
-            flops=2 * rd.numel(), tag=tag, library_fn=lambda: torch.mv(csr_r, xd), library=mv)
+        # A·x: the slice's row pool, its column pool read as the rows of Aᵀ
+        # (short rows: one segment), and a pool where bandwidth shows.  The
+        # segments' partial sums meet in another order than the plain
+        # version's k = 0 .. Kr-1, so the two agree within the tolerance, not
+        # bit for bit; two runs of the kernel must give the same bits.
+        for name, (rdata_t, rcols_t, xs) in spmv_pools.items():
+            rd = rdata_t.to(dtype).contiguous()
+            xv = xs.to(dtype)
+            csr_r = _csr_of_pool(rd, rcols_t, xv.shape[0])
+            Kr, rows = rd.shape
+            report[("ell_spmv", tag, name)] = _compare(
+                f"ell_spmv {tag} {name} Kr={Kr} m={rows} n={xv.shape[0]}",
+                lambda: ell_spmv(rd, rcols_t, xv),
+                lambda: ell_spmv_plain(rd, rcols_t, xv), tol, smi,
+                nbytes=_nbytes(rd, rcols_t, xv) + rows * xv.element_size(),
+                flops=2 * rd.numel(), tag=tag, library_fn=lambda: torch.mv(csr_r, xv),
+                library=mv, same_bits=True)
+            del csr_r
     slice_pool = next(iter(pools))
-    # the slice's launches: the f32 devex row (the sum) and the f64 A·x
+    # the first-order path's launches (f64 under the default config): c − Aᵀy and A·x
     return {
-        "ell_price": report[("ell_price", "f32", "sum", slice_pool)],
+        "ell_price": report[("ell_price", "f64", "c", slice_pool)],
         "ell_spmv": report[("ell_spmv", "f64", "slice")],
     }
 
 
-def _kernels_dense(smi, dev, rng, op):
+def _kernels_dense(smi, dev, rng, op, fo_op):
     """``dense_price`` at the dense LP's operator, on a partial-pricing
-    window of it and at a wide shape.  Nonnegative inputs, as the LP's are,
-    keep the f32 sums' error relative to their size."""
+    window of it, at a wide shape, and at the operator the first-order path
+    gives it (``fo_op``, the N = 256 max flow: ``c − Aᵀy`` in f32 and f64).
+    Nonnegative inputs, as the LP's are, keep the f32 sums' error relative to
+    their size."""
     import torch
 
     from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_plain
@@ -408,6 +455,8 @@ def _kernels_dense(smi, dev, rng, op):
         f"window [{n_pad // 4}, {n_pad // 2}) of the dense LP operator":
             (op.A, n_pad // 4, n_pad // 4),
         "wide m=2048 n=16384": (wide, 0, 16384),
+        f"max-flow N={PDLP_DENSE_NODES} operator m={fo_op.shape[0]} n={fo_op.shape[1]}":
+            (fo_op.A, 0, fo_op.shape[1]),
     }
     report = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
@@ -573,7 +622,8 @@ def phase_kernels(smi):
     ell_op = _operator(slice_problem()[0], dev, "ell")
     dense_op = _operator(dense_lp(*DENSE_SHAPE), dev, "dense")
     timings = _kernels_ell(smi, dev, rng, ell_op)
-    timings.update(_kernels_dense(smi, dev, rng, dense_op))
+    timings.update(_kernels_dense(smi, dev, rng, dense_op,
+                                  _operator(slice_problem(PDLP_DENSE_NODES)[0], dev, "dense")))
     timings.update(_kernels_select(smi, dev, ell_op, slice_problem()[0], dense_op,
                                    dense_lp(*DENSE_SHAPE)))
     timings.update(_kernels_probe(smi, dev))
@@ -628,7 +678,7 @@ def phase_slice(smi, launches):
 
     general, flow = slice_problem()
     torch.cuda.reset_peak_memory_stats()
-    with counted(("ell_price", "ell_price_select", "ell_spmv"), launches):
+    with counted(("ell_price", "ell_price_select", "ell_spmv"), launches, "slice"):
         res, wall = _solve_file(general, f"maxflow_{N_NODES}")
     obj = _check_optimal("slice", res, "ell")
     met = res.simplex.metrics
@@ -666,7 +716,7 @@ def phase_dense(smi, launches, highs):
     m, n = DENSE_SHAPE
     highs = highs.result()
     torch.cuda.reset_peak_memory_stats()
-    with counted(("dense_price", "dense_price_select"), launches):
+    with counted(("dense_price", "dense_price_select"), launches, "dense"):
         res, wall = _solve_file(dense_lp(m, n), f"dense_{m}x{n}")
     obj = _check_optimal("dense", res, "dense")
     met = res.simplex.metrics
@@ -725,6 +775,113 @@ def phase_options(smi):
           f"{ell_price.launches - price0} api_wall {wall:.3f} s")
 
 
+def _report_pdlp(tag, res, wall, smi, counts):
+    """The first-order run's line; returns (metrics, host reads per round)."""
+    import torch
+
+    met = res.simplex.metrics
+    its = max(met.fo_iterations, 1)
+    print(f"[pdlp] {tag}: engine {met.engine} iterations {met.iterations} (first-order "
+          f"{met.fo_iterations}: f32 stage {met.fo_f32_iterations}, f64 "
+          f"{met.fo_iterations - met.fo_f32_iterations}; rounds {met.fo_rounds}, refinement "
+          f"zooms {met.fo_refines}) final f64 KKT {met.fo_kkt:.3e} push pivots "
+          f"{met.push_pivots} solve_wall {met.wall_s:.3f} s ({met.wall_s / its * 1e6:.1f} us "
+          f"per first-order iteration) api_wall {wall:.3f} s host_reads {met.host_reads} "
+          f"({met.host_reads / max(met.fo_rounds, 1):.3f} per round, driver's included) peak_mem "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB launches "
+          + " ".join(f"{k} {v} ({v / its:.3f}/iter)" for k, v in counts.items())
+          + f" [{smi}]")
+    return met
+
+
+def phase_pdlp(smi, launches):
+    """The first-order engine through ``api.solve`` on the card."""
+    import torch
+
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    # 1. the slice's LP at full width, first-order point only
+    general, flow = slice_problem()
+    torch.cuda.reset_peak_memory_stats()
+    names = ("ell_price", "ell_spmv")
+    with counted(names, launches, "pdlp"):
+        res, wall = _solve_file(general, f"maxflow_{N_NODES}",
+                                SolverConfig(algorithm="pdlp", pdlp_crossover=False))
+    obj = _check_optimal("pdlp", res, "ell")
+    met = _report_pdlp(f"max-flow N={N_NODES} without crossover", res, wall, smi,
+                       PATHS["pdlp"])
+    if met.engine != "pdlp":
+        raise AssertionError(f"[pdlp] engine {met.engine!r}, expected 'pdlp'")
+    if abs(obj - flow) > 1e-5 * abs(flow):
+        raise AssertionError(f"[pdlp] objective {obj!r}, scipy's max flow {flow!r}")
+    if min(PATHS["pdlp"].values()) < met.fo_iterations:
+        raise AssertionError(f"[pdlp] launches {PATHS['pdlp']} for {met.fo_iterations} "
+                             "first-order iterations")
+    if met.fo_f32_iterations != 0:
+        raise AssertionError(f"[pdlp] {met.fo_f32_iterations} f32 iterations under the "
+                             "default precision, which is f64")
+    # every read of the solve, those of ``_run_pdlp`` included: one per round, and the
+    # operator norm's before the first round
+    if not 0 < met.fo_round_reads <= met.fo_rounds or met.host_reads > met.fo_rounds + 1:
+        raise AssertionError(f"[pdlp] {met.host_reads} host reads ({met.fo_round_reads} "
+                             f"between the rounds) for {met.fo_rounds} rounds")
+    print(f"[pdlp] objective {obj:.12g} scipy {flow:.12g} rel "
+          f"{abs(obj - flow) / abs(flow):.2e}; the solve read the device "
+          f"{met.host_reads} times for {met.fo_rounds} rounds: {met.fo_round_reads} after "
+          f"a round ({met.fo_round_reads / met.fo_rounds:.3f} per round, none inside a "
+          "round) and the operator norm before the first")
+
+    # 2. the default config: first-order point, then the crossover to the vertex
+    general, flow = slice_problem(OPTIONS_NODES)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(names, {}, "pdlp crossover"):
+        res, wall = _solve_file(general, f"maxflow_{OPTIONS_NODES}",
+                                SolverConfig(algorithm="pdlp"))
+    obj = _check_optimal("pdlp", res, "ell")
+    met = _report_pdlp(f"max-flow N={OPTIONS_NODES} default config", res, wall, smi,
+                       PATHS["pdlp crossover"])
+    if met.engine != "pdlp+crossover" or abs(obj - flow) > 1e-6:
+        raise AssertionError(f"[pdlp] engine {met.engine!r} objective {obj!r}, expected "
+                             f"'pdlp+crossover' and scipy's {flow!r}")
+    print(f"[pdlp] objective {obj:.12g} == scipy {flow:.12g} after {met.push_pivots} "
+          "push pivots")
+
+    # 3. the explicit mixed precision: f32 rounds held against the f64 KKT
+    # every 8 rounds (one more read per call), refinement zooms, f64 endgame
+    torch.cuda.reset_peak_memory_stats()
+    with counted(names, {}, "pdlp mixed"):
+        res, wall = _solve_file(general, f"maxflow_{OPTIONS_NODES}", SolverConfig(
+            algorithm="pdlp", pdlp_crossover=False, pdlp_precision="mixed"))
+    obj = _check_optimal("pdlp", res, "ell")
+    met = _report_pdlp(f"max-flow N={OPTIONS_NODES} without crossover, mixed precision",
+                       res, wall, smi, PATHS["pdlp mixed"])
+    if met.engine != "pdlp" or abs(obj - flow) > 1e-5 * abs(flow) or met.fo_f32_iterations < 1:
+        raise AssertionError(f"[pdlp] engine {met.engine!r} objective {obj!r} (scipy's "
+                             f"{flow!r}) f32 iterations {met.fo_f32_iterations}")
+    print(f"[pdlp] objective {obj:.12g} scipy {flow:.12g} rel {abs(obj - flow) / abs(flow):.2e}")
+
+    # 4. the dense operator (auto picks it below 1,024 rows): dense_price in
+    # c − Aᵀy mode, A·x a plain product.  The dense resource-allocation LP of
+    # the options phase is no first-order workload (PDHG stalls above its
+    # tolerance there and the driver falls back), so this is the max flow at
+    # N = 256, 254 × 2,048.
+    general, flow = slice_problem(PDLP_DENSE_NODES)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(("dense_price",), {}, "pdlp dense"):
+        res, wall = _solve_file(general, f"maxflow_{PDLP_DENSE_NODES}",
+                                SolverConfig(algorithm="pdlp", pdlp_crossover=False))
+    obj = _check_optimal("pdlp", res, "dense")
+    met = _report_pdlp(f"max-flow N={PDLP_DENSE_NODES} without crossover, dense operator",
+                       res, wall, smi, PATHS["pdlp dense"])
+    if met.engine != "pdlp" or abs(obj - flow) > 1e-5 * abs(flow):
+        raise AssertionError(f"[pdlp] engine {met.engine!r} objective {obj!r}, scipy's "
+                             f"max flow {flow!r}")
+    if PATHS["pdlp dense"]["dense_price"] < met.fo_iterations:
+        raise AssertionError(f"[pdlp] launches {PATHS['pdlp dense']} for "
+                             f"{met.fo_iterations} first-order iterations")
+    print(f"[pdlp] objective {obj:.12g} scipy {flow:.12g} rel {abs(obj - flow) / abs(flow):.2e}")
+
+
 def phase_cli():
     from relp_tpu_torch import cli
 
@@ -757,14 +914,15 @@ def main() -> int:
                   lambda: timings.update(phase_kernels(smi)),
                   lambda: phase_slice(smi, launches),
                   lambda: phase_dense(smi, launches, highs),
-                  lambda: phase_options(smi), phase_cli):
+                  lambda: phase_options(smi), lambda: phase_pdlp(smi, launches), phase_cli):
         t0 = time.perf_counter()
         phase()
         print(f"[time] {time.perf_counter() - t0:.1f} s", flush=True)
     if "jax" in sys.modules or "relp_tpu" in sys.modules:
         raise AssertionError("the smoke run imported JAX or the JAX package")
-    if min(launches[name] for name in KERNELS) < 1:
-        raise AssertionError(f"a kernel was not launched on its path: {launches}")
+    if min(launches[name] for name in KERNELS) < 1 or \
+            min(count for counts in PATHS.values() for count in counts.values()) < 1:
+        raise AssertionError(f"a kernel was not launched on its path: {PATHS}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,11 +1,13 @@
 """Command-line interface:  python -m relp_tpu_torch <problem_file>
 
-import → GeneralForm → presolve → primal simplex on the device → print the
-solution, as ``python -m relp_tpu`` does, with its primal flags
-(``--basis-in`` warm starts, ``--write-mps`` export, ``--perturb``,
-``--inverse``).  The device comes from ``RELP_TPU_TORCH_DEVICE`` (default
-``cuda``).  Flags of the JAX package's CLI whose engines are not ported yet
-exit with a message saying so.
+import → GeneralForm → presolve → solve on the device → print the solution,
+as ``python -m relp_tpu`` does, with its primal flags (``--basis-in`` warm
+starts, ``--write-mps`` export, ``--perturb``, ``--inverse``) and its
+first-order ones (``--algorithm pdlp``, ``--no-crossover``, ``--pdlp-*``).
+The device comes from ``RELP_TPU_TORCH_DEVICE`` (default ``cuda``).  Flags and
+values of the JAX package's CLI whose engines are not ported yet
+(``--algorithm dual|ipm``, ``--pdlp-matrix bricks``, ...) exit with a message
+saying so.
 """
 
 from __future__ import annotations
@@ -21,9 +23,7 @@ from relp_tpu_torch.utils.config import SolverConfig
 
 # flags of `python -m relp_tpu` that this package does not carry yet
 NOT_PORTED = {
-    "--verify", "--algorithm", "--no-crossover",
-    "--pdlp-matrix", "--pdlp-variant", "--pdlp-precision", "--pdlp-refine",
-    "--pdlp-accept", "--ipm-tol", "--ipm-accept", "--ipm-max-iter",
+    "--verify", "--ipm-tol", "--ipm-accept", "--ipm-max-iter",
     "--ipm-ladder", "--mip", "--mip-cuts", "--mip-branch",
     "--mesh-cols", "--xl-engine", "--dual-pricing", "--ranging",
 }
@@ -33,8 +33,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="relp_tpu_torch",
         description="linear program solver on PyTorch/CUDA (two-phase primal "
-        "revised simplex); the device comes from RELP_TPU_TORCH_DEVICE "
-        "(default cuda)",
+        "revised simplex, or first-order restarted PDHG with crossover); the "
+        "device comes from RELP_TPU_TORCH_DEVICE (default cuda)",
     )
     ap.add_argument("problem_file", help="path to a .mps (free) or .sif (fixed) file")
     ap.add_argument("--max-iter", type=int, default=0, help="iteration cap (0 = auto)")
@@ -60,6 +60,41 @@ def main(argv=None) -> int:
         "--inverse", choices=["dense", "eta"], default="dense",
         help="basis-inverse backend (eta = block product-form, large m)",
     )
+    ap.add_argument(
+        "--algorithm", choices=["primal", "dual", "pdlp", "ipm"], default="primal",
+        help="main solve algorithm (pdlp = first-order restarted PDHG, the scale "
+        "path; dual and ipm are not ported yet)",
+    )
+    ap.add_argument(
+        "--no-crossover", action="store_true",
+        help="with --algorithm pdlp: return the first-order point as it is "
+        "instead of recovering an exact simplex vertex from it",
+    )
+    ap.add_argument(
+        "--pdlp-matrix", choices=["auto", "ell", "bricks"], default="auto",
+        help="PDHG device matrix (auto, ell = the operator --matrix-format picks; "
+        "bricks is not ported yet)",
+    )
+    ap.add_argument(
+        "--pdlp-variant", choices=["halpern", "avg"], default="halpern",
+        help="PDHG restart scheme (halpern = reflected Halpern iteration; "
+        "avg = classic PDLP average restarts)",
+    )
+    ap.add_argument(
+        "--pdlp-precision", choices=["auto", "mixed", "f64"], default="auto",
+        help="PDHG iterate precision (mixed = f32 rounds + f64 KKT checks + f64 "
+        "endgame; auto = f64)",
+    )
+    ap.add_argument(
+        "--pdlp-refine", type=int, default=4,
+        help="max iterative-refinement zooms of the mixed-precision PDHG path "
+        "(0 disables: the f64 endgame takes over)",
+    )
+    ap.add_argument(
+        "--pdlp-accept", type=float, default=1e-6, metavar="KKT",
+        help="with --algorithm pdlp: accept a plateaued point whose best "
+        "relative KKT is below this",
+    )
     args, extra = ap.parse_known_args(argv)
     for token in extra:
         flag = token.split("=", 1)[0]
@@ -69,6 +104,11 @@ def main(argv=None) -> int:
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
 
+    for flag, value, refused in (("--algorithm", args.algorithm, ("dual", "ipm")),
+                                 ("--pdlp-matrix", args.pdlp_matrix, ("bricks",))):
+        if value in refused:
+            ap.exit(2, f"relp_tpu_torch: {flag} {value} is not ported yet (see "
+                       "ROADMAP.md, queue 1); use python -m relp_tpu for it\n")
     config = SolverConfig(
         max_iter=args.max_iter,
         scale=not args.no_scale,
@@ -78,6 +118,13 @@ def main(argv=None) -> int:
         matrix_format=args.matrix_format,
         inverse=args.inverse,
         perturb=args.perturb,
+        algorithm=args.algorithm,
+        pdlp_crossover=not args.no_crossover,
+        pdlp_matrix=args.pdlp_matrix,
+        pdlp_variant=args.pdlp_variant,
+        pdlp_precision=args.pdlp_precision,
+        pdlp_refine=args.pdlp_refine,
+        pdlp_accept=args.pdlp_accept,
     )
 
     t0 = time.perf_counter()

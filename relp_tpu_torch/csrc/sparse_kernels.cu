@@ -30,7 +30,7 @@
 //   (16 KB at m = 4,096 in f32; up to the 227 KB a block may ask for), so a
 //   gather is a shared-memory read that waits on no second trip to L2; a
 //   larger y is gathered through the read-only cache (__ldg) as before;
-// - a few blocks per SM at most, each striding over chunks of 4 * kThreads
+// - a few blocks per SM at most, each striding over chunks of 4 * kPriceThreads
 //   columns, so y is staged once per block and not once per 256 columns;
 // - a thread owns 4 neighbouring columns and reads their indices and values
 //   with 16-byte loads, kSlots slots at a time, all issued before the first
@@ -40,8 +40,32 @@
 // - the selection epilogue: every thread scores its columns in registers and
 //   the candidates meet through one slot per block.
 // Padding slots hold (index 0, value 0) and contribute exactly zero.
-// ell_spmv keeps one thread per output element walking its K slots in order
-// (Kr = 31 slots deep at m = 4,096: the depth, not the width, is its work).
+//
+// What the design of ell_spmv does about it.  The row twin is few rows deep
+// in slots (Kr = 31 at m = 4,096, n = 32,768): one thread a row is 16 blocks
+// on a card of 132 SMs, each thread a chain of 31 index loads with a
+// dependent gather behind every one.  The TPU kernel walks 8x128 bricks of
+// rows with the whole x in VMEM.  Here
+// - a row's Kr slots are cut into S segments of L slots that different
+//   threads take, so a launch has about m * S work items; a block is
+//   (row threads) x (S segments) with the row index on threadIdx.x, so
+//   neighbouring threads read neighbouring addresses of rdata[k, .] and
+//   rcols[k, .];
+// - a thread issues the index and value loads of a whole batch of slots
+//   before the first gather (4 slots x 4 neighbouring rows with 16-byte
+//   loads where m % 4 == 0 and the pools are aligned; 8 slots of one row
+//   otherwise, the scalar edge path of the same kernel);
+// - the S partial sums of a row meet in shared memory and one thread adds
+//   them in the order s = 0 .. S-1: no atomics, the same bits every run
+//   (another order than k = 0 .. Kr-1, so it agrees with the plain version
+//   within rounding, not bit for bit);
+// - x is not staged.  ell_price has a few blocks that each reuse a 16-32 KB
+//   y; here there are many blocks and x is n long (256 KB in f64 at
+//   n = 32,768, more than the 227 KB a block may hold), so every block
+//   staging x would move blocks * n values where the gathers move m * Kr:
+//   more bytes than the gathers themselves.  x is gathered through the
+//   read-only path (__ldg) and lives in L2.
+// S, L and the block's shape come from ops/sparse_kernels.py (spmv_plan).
 //
 // Built by relp_tpu_torch/ops/cuda_build.py into a shared library with a
 // plain C interface; every entry point launches on the given stream, does
@@ -57,29 +81,13 @@ namespace {
 using relp::Cand;
 using relp::SelectArgs;
 
-constexpr int kThreads = 256;  // ell_spmv: one output element a thread
 #ifndef RELP_ELL_THREADS
 #define RELP_ELL_THREADS 128
 #endif
 constexpr int kPriceThreads = RELP_ELL_THREADS;  // ops/sparse_kernels.py: _PRICE_CHUNK
+constexpr int kSpmvMaxThreads = 512;  // of an ell_spmv block (row threads x segments)
 constexpr int kCols = 4;       // columns a thread of ell_price owns
 constexpr int kSlots = 4;      // slots whose loads are issued together
-
-template <typename T>
-__global__ void ell_gather_sum_kernel(const T* __restrict__ data,
-                                      const int32_t* __restrict__ idx,
-                                      const T* __restrict__ y,
-                                      T* __restrict__ out, int64_t n, int K) {
-  const int64_t j =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  T acc = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int64_t s = static_cast<int64_t>(k) * n + j;
-    acc += data[s] * __ldg(y + idx[s]);
-  }
-  out[j] = acc;
-}
 
 template <typename T>
 struct PriceArgs {
@@ -262,15 +270,126 @@ int launch_price(const void* data, const void* idx, const void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ell_spmv: block (TX row threads, S segments); thread (tx, s) sums the slots
+// [s * L, min(K, (s + 1) * L)) of its R rows.  R == 4 with `vector`: the 4
+// neighbouring rows 4 * tx .. 4 * tx + 3 of the block's chunk, 16-byte
+// loads; otherwise the rows tx + e * TX, 4- and 8-byte loads.  part[s][row]
+// in shared memory (S > 1) holds the partial sums.  kBatch slots have their
+// loads issued together: 2 for segments of at most 2 slots, else 4 (R == 4)
+// or 8 (R == 1).
+template <typename T, int R, int kBatch>
+__global__ void __launch_bounds__(kSpmvMaxThreads) ell_spmv_kernel(const T* __restrict__ rdata,
+                                const int32_t* __restrict__ rcols,
+                                const T* __restrict__ x, T* __restrict__ y,
+                                int64_t m, int K, int L, int vector) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* part = reinterpret_cast<T*>(smem_raw);
+  const int TX = blockDim.x, S = blockDim.y;
+  const int tx = threadIdx.x, s = threadIdx.y;
+  const int rows_blk = TX * R;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * rows_blk;
+  const bool vec = R == 4 && vector != 0;
+  const int local = vec ? tx * R : tx;
+  const int step = vec ? 1 : TX;
+  const int64_t first = base + local;
+  int live = 0;
+#pragma unroll
+  for (int e = 0; e < R; ++e) live += (first + e * step < m) ? 1 : 0;
+  T acc[R];
+#pragma unroll
+  for (int e = 0; e < R; ++e) acc[e] = T(0);
+  const int k_lo = s * L;
+  const int k_hi = min(K, k_lo + L);
+  if (live > 0) {
+    const T* __restrict__ dp = rdata + first;
+    const int32_t* __restrict__ ip = rcols + first;
+    for (int k0 = k_lo; k0 < k_hi; k0 += kBatch) {
+      T val[kBatch][R];
+      int32_t col[kBatch][R];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (k0 + u < k_hi) {
+          const int64_t off = static_cast<int64_t>(k0 + u) * m;
+          bool wide = false;
+          if constexpr (R == 4) {
+            if (vec && live == R) {
+              load4(ip + off, col[u]);
+              load4(dp + off, val[u]);
+              wide = true;
+            }
+          }
+          if (!wide) {
+#pragma unroll
+            for (int e = 0; e < R; ++e) {
+              col[u][e] = e < live ? __ldg(ip + off + e * step) : 0;
+              val[u][e] = e < live ? __ldg(dp + off + e * step) : T(0);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (k0 + u < k_hi) {
+#pragma unroll
+          for (int e = 0; e < R; ++e) acc[e] += val[u][e] * __ldg(x + col[u][e]);
+        }
+      }
+    }
+  }
+  if (S == 1) {
+#pragma unroll
+    for (int e = 0; e < R; ++e) {
+      if (e < live) y[first + e * step] = acc[e];
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < R; ++e) part[s * rows_blk + local + e * step] = acc[e];
+  __syncthreads();
+  // one thread a row adds the S partial sums, always in the order 0 .. S-1
+  for (int r = s * TX + tx; r < rows_blk; r += TX * S) {
+    if (base + r < m) {
+      T sum = part[r];
+      for (int q = 1; q < S; ++q) sum += part[q * rows_blk + r];
+      y[base + r] = sum;
+    }
+  }
+}
+
 template <typename T>
 int launch_spmv(const void* rdata, const void* rcols, const void* x, void* y,
-                int64_t m, int K, void* stream) {
-  if (m > 0) {
-    const int64_t blocks = (m + kThreads - 1) / kThreads;
-    ell_gather_sum_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(rdata), static_cast<const int32_t*>(rcols),
-        static_cast<const T*>(x), static_cast<T*>(y), m, K);
+                int64_t m, int K, int S, int L, int TX, int R, void* stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  // every slot in exactly one segment, no segment empty
+  if (K < 1 || S < 1 || L < 1 || TX < 1 || (R != 1 && R != 4) ||
+      static_cast<int64_t>(S) * L < K || static_cast<int64_t>(S - 1) * L >= K ||
+      static_cast<int64_t>(TX) * S > kSpmvMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = S > 1 ? static_cast<size_t>(S) * TX * R * sizeof(T) : 0;
+  const int64_t rows_blk = static_cast<int64_t>(TX) * R;
+  const int64_t blocks = (m + rows_blk - 1) / rows_blk;
+  if (smem > 48 * 1024 || blocks > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vector = R == 4 && m % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(rdata) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(rcols) % 16 == 0;
+  const dim3 block(TX, S);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* d = static_cast<const T*>(rdata);
+  const int32_t* c = static_cast<const int32_t*>(rcols);
+  const T* xv = static_cast<const T*>(x);
+  T* yv = static_cast<T*>(y);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (R == 4 && L <= 2) {
+    ell_spmv_kernel<T, 4, 2><<<grid, block, smem, st>>>(d, c, xv, yv, m, K, L, vector);
+  } else if (R == 4) {
+    ell_spmv_kernel<T, 4, 4><<<grid, block, smem, st>>>(d, c, xv, yv, m, K, L, vector);
+  } else if (L <= 2) {
+    ell_spmv_kernel<T, 1, 2><<<grid, block, smem, st>>>(d, c, xv, yv, m, K, L, 0);
+  } else {
+    ell_spmv_kernel<T, 1, 8><<<grid, block, smem, st>>>(d, c, xv, yv, m, K, L, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -296,13 +415,15 @@ int relp_ell_price_f64(const void* data, const void* rows, const void* y,
 }
 
 int relp_ell_spmv_f32(const void* rdata, const void* rcols, const void* x,
-                      void* y, int64_t m, int K, void* stream) {
-  return launch_spmv<float>(rdata, rcols, x, y, m, K, stream);
+                      void* y, int64_t m, int K, int S, int L, int TX, int R,
+                      void* stream) {
+  return launch_spmv<float>(rdata, rcols, x, y, m, K, S, L, TX, R, stream);
 }
 
 int relp_ell_spmv_f64(const void* rdata, const void* rcols, const void* x,
-                      void* y, int64_t m, int K, void* stream) {
-  return launch_spmv<double>(rdata, rcols, x, y, m, K, stream);
+                      void* y, int64_t m, int K, int S, int L, int TX, int R,
+                      void* stream) {
+  return launch_spmv<double>(rdata, rcols, x, y, m, K, S, L, TX, R, stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,9 @@
 With these, a solve can start in ``relp_tpu`` and finish here: the JAX
 package's operator arrays become this package's operator, and the basis
 state of a JAX ``SolveOutput`` becomes this package's ``solve_core``
-warm-start arguments.  Nothing here imports JAX; callers pass
+warm-start arguments, and a JAX ``PdhgState`` becomes this package's (and
+back), so both packages' ``solve_pdhg_chunk`` can start from one state.
+Nothing here imports JAX; callers pass
 ``np.asarray(...)`` of the JAX arrays.  Every array is copied: a JAX
 array's buffer is read-only, and the port updates some of these tensors in
 place (``Binv.addr_``, ``index_copy_``), which must never write into JAX's
@@ -15,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from relp_tpu_torch.fom.pdhg import PdhgState
 from relp_tpu_torch.ops.amatrix import DenseMatrix, EllMatrix
 from relp_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -52,3 +55,24 @@ def warm_start_from_numpy(basis, vstat, art_sign, phase, *, device: DeviceLike):
         art_sign0=torch.tensor(np.asarray(art_sign, np.float64), device=dev),
         phase0=int(np.asarray(phase)),
     )
+
+
+def pdhg_state_from_numpy(fields, *, device: DeviceLike) -> PdhgState:
+    """This package's ``PdhgState`` on ``device`` from the fields of a JAX
+    ``PdhgState`` as numpy arrays (a mapping, or the fields in order, e.g.
+    ``[np.asarray(v) for v in jax_state]``).  Every leaf keeps its dtype and
+    is copied."""
+    dev = resolve_device(device)
+    if not hasattr(fields, "keys"):
+        fields = dict(zip(PdhgState._fields, fields, strict=True))
+    return PdhgState(**{
+        name: torch.tensor(np.asarray(fields[name]), device=dev) for name in PdhgState._fields
+    })
+
+
+def pdhg_state_to_numpy(state: PdhgState) -> dict:
+    """The fields of a ``PdhgState`` as numpy arrays (copies, on the host),
+    by name: what ``relp_tpu.fom.pdhg.PdhgState(**...)`` takes once each is
+    wrapped in ``jnp.asarray``."""
+    return {name: value.detach().cpu().numpy().copy()
+            for name, value in state._asdict().items()}

@@ -3,7 +3,7 @@
 Three interchangeable operator classes hold their tensors on one explicit
 ``torch.device`` and offer the engine one small interface (``matvec``,
 ``rmatvec``, ``rmatvec32``, ``rmatvec32_block``, ``price``, ``price32``,
-``col``, ``ftran``, ``col_dot``, ``entries``, ``cols_matrix``), as in
+``col``, ``ftran``, ``col_dot``, ``entries``, ``cols_matrix``, ``astype``), as in
 ``relp_tpu/ops/amatrix.py``; the dense and the ELL operator also offer
 ``price_select`` and ``price32_select``:
 
@@ -78,6 +78,11 @@ class DenseMatrix:
         if self.A32 is not None:
             return self
         return DenseMatrix(self.A, self.A.float())
+
+    def astype(self, dtype) -> "DenseMatrix":
+        """The same operator with its values in ``dtype`` (every product then
+        runs in it): the first-order engine's f32 stage."""
+        return self if dtype == self.dtype else DenseMatrix(self.A.to(dtype))
 
     def matvec(self, x):
         return self.A @ x
@@ -174,6 +179,14 @@ class EllMatrix:
         return EllMatrix(self.data_t, self.rows_t, self.m, self.rdata_t,
                          self.rcols_t, self.data_t.float())
 
+    def astype(self, dtype) -> "EllMatrix":
+        """The same operator with its values in ``dtype`` (both pools; the
+        index arrays are shared)."""
+        if dtype == self.dtype:
+            return self
+        return EllMatrix(self.data_t.to(dtype), self.rows_t, self.m,
+                         self.rdata_t.to(dtype), self.rcols_t)
+
     def matvec(self, x):
         return ell_spmv(self.rdata_t, self.rcols_t, x)
 
@@ -263,6 +276,12 @@ class HybridMatrix:
             return self
         return HybridMatrix(self.ell.with_f32(), self.D, self.spill_idx,
                             self.spill_pos, self.D.float())
+
+    def astype(self, dtype) -> "HybridMatrix":
+        if dtype == self.dtype:
+            return self
+        return HybridMatrix(self.ell.astype(dtype), self.D.to(dtype), self.spill_idx,
+                            self.spill_pos)
 
     def _spill_col(self, q):
         pos = _sel(self.spill_pos, 0, q)

@@ -37,9 +37,10 @@ SIGNATURES = {
     # SelectArgs* (select_epilogue.cuh; null: write out), stream
     "relp_ell_price_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _I32, _P, _P],
     "relp_ell_price_f64": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _I32, _P, _P],
-    # sparse_kernels.cu: rdata, rcols, x, y, m, K, stream
-    "relp_ell_spmv_f32": [_P, _P, _P, _P, _I64, _I32, _P],
-    "relp_ell_spmv_f64": [_P, _P, _P, _P, _I64, _I32, _P],
+    # sparse_kernels.cu: rdata, rcols, x, y, m, K, segments, slots of a segment,
+    # row threads, rows of a thread (ops/sparse_kernels.py: spmv_plan), stream
+    "relp_ell_spmv_f32": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
+    "relp_ell_spmv_f64": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
     # dense_kernels.cu: A, v, c, out, partial, counters, m, lda, j0, w, slices,
     # rows_per_slice, SelectArgs* (null: write out), stream
     "relp_dense_price_f32": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P],

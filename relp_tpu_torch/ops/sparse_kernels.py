@@ -9,8 +9,15 @@ columns, K = 2) a launch moves under 1 MB, so the launch and the chain
 index load → gather bound them.  ``ell_price`` stages the gathered vector in
 shared memory when it fits (the TPU kernel's whole-vector VMEM residency),
 runs a few blocks per SM that stride over the columns, and reads 4
-neighbouring columns a thread with 16-byte loads; ``ell_spmv`` keeps one
-thread per row walking its slots in order.
+neighbouring columns a thread with 16-byte loads.  ``ell_spmv`` has few rows,
+each many slots deep (Kr = 31 at m = 4,096): it cuts a row's slots into S
+segments that different threads sum (:func:`spmv_plan`), so the launch fills
+the card, issues a batch of a segment's loads before the first gather, and
+adds a row's S partial sums in shared memory in a fixed order, without
+atomics.  It does not stage ``x``: with many blocks and an ``x`` of n
+elements (256 KB in f64 at n = 32,768, more than a block's shared memory)
+staging would move more bytes than the gathers, so ``x`` is gathered through
+the read-only path and lives in L2.
 
 ``ell_price_select`` is the pricing pass with the selection epilogue
 (``ops/select_epilogue.py``): the entering column ``(q, has, d_q)`` comes
@@ -30,7 +37,7 @@ wrapper counts its launches in a plain integer attribute, ``launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,6 +55,9 @@ _FLOATS = (torch.float32, torch.float64)
 _PRICE_CHUNK = 128 * 4         # columns a block of ell_price takes at a time (csrc)
 _PRICE_BLOCKS = 264            # at most two blocks per SM of an H100 (132 SMs)
 _STAGE_BYTES = 227 * 1024 - 2048  # dynamic shared memory a block may ask for
+_SPMV_THREADS = 256            # threads of an ell_spmv block (row threads x segments)
+_SPMV_FILL = 16384             # threads of a launch below which a row's slots are split
+_SPMV_WIDE_ROWS = 131072       # rows from which a thread takes 4 of them
 
 
 def ell_price_plain(data_t: torch.Tensor, idx_t: torch.Tensor, y: torch.Tensor,
@@ -108,6 +118,41 @@ def price_plan(w: int, m: int, itemsize: int) -> tuple[int, bool]:
     is staged in shared memory (it is whenever it fits)."""
     blocks = max(1, min(-(-w // _PRICE_CHUNK), _PRICE_BLOCKS))
     return blocks, m * itemsize <= _STAGE_BYTES
+
+
+class SpmvPlan(NamedTuple):
+    """Launch shape of ``ell_spmv``: a block is ``row_threads × segments``
+    threads over ``row_threads · rows_per_thread`` rows; segment ``s`` holds
+    the slots ``[s · seg_len, min(Kr, (s + 1) · seg_len))``."""
+
+    segments: int
+    seg_len: int
+    row_threads: int
+    rows_per_thread: int
+
+
+def spmv_plan(m: int, Kr: int, itemsize: int) -> SpmvPlan:
+    """The launch shape of ``ell_spmv`` over ``m`` rows of ``Kr`` slots.
+
+    With ``_SPMV_WIDE_ROWS`` rows or more a thread takes 4 neighbouring rows
+    (16-byte loads), else one row: below that, wide loads leave too few
+    threads to hide the gathers' latency (4 rows a thread loses at 32,768
+    rows and is 1-2 % ahead at 131,072).  The slots of a row are then cut
+    into the fewest segments (a power of two, at most 16, at least 2 slots
+    each) that bring the launch to ``_SPMV_FILL`` threads; a block has
+    ``_SPMV_THREADS`` threads, at least a warp of them along the rows.  The
+    block's partial sums (one of ``itemsize`` bytes per row and segment)
+    must fit the 48 KB of shared memory a launch gets without opting in."""
+    rows = 4 if m % 4 == 0 and m >= _SPMV_WIDE_ROWS else 1
+    segments = 1
+    while segments < 16 and 4 * segments <= Kr and -(-m // rows) * segments < _SPMV_FILL:
+        segments *= 2
+    seg_len = -(-Kr // segments)
+    segments = -(-Kr // seg_len)       # no empty segment
+    plan = SpmvPlan(segments, seg_len, max(32, _SPMV_THREADS // segments), rows)
+    if segments * plan.row_threads * rows * itemsize > 48 * 1024:
+        raise ValueError(f"spmv_plan: {plan} needs more than 48 KB of shared memory")
+    return plan
 
 
 def _launch_price(name, data_t, idx_t, y, c, j0, w, out, sel, outs):
@@ -210,10 +255,11 @@ def ell_spmv(rdata_t: torch.Tensor, rcols_t: torch.Tensor,
     K, m = rdata_t.shape
     out = torch.empty(m, dtype=rdata_t.dtype, device=dev)
     fn = lib.relp_ell_spmv_f32 if rdata_t.dtype == torch.float32 else lib.relp_ell_spmv_f64
+    plan = spmv_plan(m, K, rdata_t.element_size())
     with torch.cuda.device(dev):
         err = fn(
             rdata_t.data_ptr(), rcols_t.data_ptr(), x.data_ptr(),
-            out.data_ptr(), m, K, torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), m, K, *plan, torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on("ell_spmv", err)
     ell_spmv.launches += 1

@@ -9,6 +9,16 @@ chunking: the card has no execution watchdog), and the result is unscaled
 into a named ``Solution``.  With ``perturb`` the core first solves against
 seeded expanded bounds (``_perturbed_bounds``) and then against the true
 bounds, warm-started from the perturbed optimum.
+
+``algorithm="pdlp"`` routes through the first-order engine first
+(``_run_pdlp`` over fom/pdhg.py: host scaling, the operator of the scaled
+matrix, the mixed-precision stage with its refinement zooms, the variant
+cascade, plateau acceptance) and then, under ``pdlp_crossover``, through
+``_crossover`` (basis guess, push and dual cleanup on the host LU of
+simplex/lu_host.py, one warm-started certifying ``solve_core`` call).  When
+the first-order engine cannot certify optimality the primal solves from
+scratch, as in the JAX package; ``SolveMetrics.engine`` names the engine
+whose answer is returned.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ from relp_tpu_torch.model.general_form import GeneralForm
 from relp_tpu_torch.model.solution import Solution
 from relp_tpu_torch.ops.amatrix import DenseMatrix, ell_from_csc, hybrid_from_csc
 from relp_tpu_torch.simplex import status as st
-from relp_tpu_torch.simplex.core import solve_core
+from relp_tpu_torch.simplex.core import SolveOutput, solve_core
 from relp_tpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
 from relp_tpu_torch.utils.device import DeviceLike, resolve_device
 from relp_tpu_torch.utils.metrics import SolveMetrics, Timer
@@ -124,6 +134,639 @@ def _cold_vstat(lb, ub):
     ).astype(np.int32)
 
 
+_F32_ROUNDS_PER_CALL = 8  # rounds of the first-order f32 stage between two f64 KKT checks
+# temporary-box magnitude of the host dual simplex's repaired start (the data
+# is equilibrated to O(1), so this is absolute in scaled space); the JAX
+# package's ``dual_box`` default
+_DUAL_BOX = 1e7
+
+
+@dataclass
+class _Padded:
+    """The padded host arrays of one solve, shared by its engines."""
+
+    cf: ComputationalForm
+    config: SolverConfig
+    dev: torch.device
+    m_pad: int
+    n_pad: int
+    b: np.ndarray
+    c: np.ndarray
+    lb: np.ndarray
+    ub: np.ndarray
+    A_csc: sp.csc_matrix       # cf.A, m × n
+    max_iter: int
+    iterations: int = 0        # of every engine that ran
+    host_reads: int = 0
+    _a_pad: Optional[sp.csc_matrix] = None
+    _device_A: Optional[tuple] = None
+
+    def a_pad_csc(self):
+        """Padded (m_pad × n_pad) scipy CSC of cf.A, built once."""
+        if self._a_pad is None:
+            coo = self.A_csc.tocoo()
+            self._a_pad = sp.csc_matrix((coo.data, (coo.row, coo.col)),
+                                        shape=(self.m_pad, self.n_pad))
+        return self._a_pad
+
+    def device_A(self):
+        """``(operator, format)`` of cf.A on the device, built once."""
+        if self._device_A is None:
+            self._device_A = _device_matrix(self.cf, self.m_pad, self.n_pad,
+                                            self.config, self.dev)
+        return self._device_A
+
+    def host_art_sign(self, vstat0):
+        """Artificial signs from the residual at the nonbasic point."""
+        at_lower = (vstat0 == st.NB_LOWER) | (vstat0 == st.NB_FIXED)
+        x0 = np.where(at_lower, self.lb, np.where(vstat0 == st.NB_UPPER, self.ub, 0.0))
+        x0 = np.where(vstat0 == st.BASIC, 0.0, x0)
+        r0 = self.b.copy()
+        r0[: self.cf.m] -= np.asarray(self.A_csc @ x0[: self.cf.n])
+        return np.where(r0 >= 0, 1.0, -1.0)
+
+    def solve_core(self, lb_run, ub_run, warm, budget, config=None):
+        """One device solve of the primal engine against one bound set."""
+        f64 = dict(dtype=torch.float64, device=self.dev)
+        b_t, c_t, lb_t, ub_t = (torch.as_tensor(v, **f64)
+                                for v in (self.b, self.c, lb_run, ub_run))
+
+        def tensor(v):
+            v = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            return torch.as_tensor(v.astype(np.int64) if v.dtype.kind == "i" else v,
+                                   device=self.dev)
+
+        warm_t = {k: (int(v) if k == "phase0" else tensor(v)) for k, v in warm.items()}
+        out = solve_core(self.device_A()[0], b_t, c_t, lb_t, ub_t,
+                         self.config if config is None else config, budget, **warm_t)
+        self.iterations += int(out.it)
+        self.host_reads += out.host_reads
+        return out
+
+
+def _pdlp_scaling(p: _Padded):
+    """Ruiz ∞-norm equilibration (10 passes) and, under ``pdlp_scale=
+    "ruiz+pc"``, one Pock–Chambolle (α = 1) pass on top, on the host.
+    First-order convergence is driven by A's conditioning far more than the
+    simplex is.  The solve runs in x = D_c x', y = D_r y' space; returns
+    ``(d_r[m_pad], d_c[n_pad], D_r·A·D_c)``."""
+    cf = p.cf
+    d_r = np.ones(p.m_pad)
+    d_c = np.ones(p.n_pad)
+    S = abs(p.A_csc).tocsr()
+    for _ in range(10):
+        rmax = np.asarray(S.max(axis=1).todense()).ravel()
+        rs = 1.0 / np.sqrt(np.where(rmax > 0, rmax, 1.0))
+        S = sp.diags(rs) @ S
+        cmax = np.asarray(S.max(axis=0).todense()).ravel()
+        cs = 1.0 / np.sqrt(np.where(cmax > 0, cmax, 1.0))
+        S = S @ sp.diags(cs)
+        d_r[: cf.m] *= rs
+        d_c[: cf.n] *= cs
+    if p.config.pdlp_scale == "ruiz+pc":
+        r1 = np.asarray(abs(S).sum(axis=1)).ravel()
+        rs = 1.0 / np.sqrt(np.where(r1 > 0, r1, 1.0))
+        S = sp.diags(rs) @ S
+        c1 = np.asarray(abs(S).sum(axis=0)).ravel()
+        cs = 1.0 / np.sqrt(np.where(c1 > 0, c1, 1.0))
+        S = S @ sp.diags(cs)
+        d_r[: cf.m] *= rs
+        d_c[: cf.n] *= cs
+    return d_r, d_c, sp.diags(d_r[: cf.m]) @ p.A_csc @ sp.diags(d_c[: cf.n])
+
+
+def _run_pdlp(p: _Padded, fo: dict):
+    """Restarted PDHG (fom/pdhg.py, the first-order scale path): two sparse
+    products and vector work per iteration, no inverse, no factorization.
+    Returns a SolveOutput-shaped namespace (numpy, ``vertex=False``) on
+    convergence, else None (the caller falls back to the primal simplex).
+    ``fo`` receives the run's counters and the device format.
+
+    Port of ``_run_pdlp`` of the JAX driver without its brick and mesh
+    branches.  The state, the best snapshot and the composite point of a
+    refinement frame stay on the device; per call of ``solve_pdhg_chunk``
+    the host reads one vector after every round and, in the f32 stage, the
+    f64 KKT of the composite point."""
+    from types import SimpleNamespace
+
+    from relp_tpu_torch.fom.pdhg import (
+        _power_norm, cast_state, initial_state, kkt_residual, solve_pdhg_chunk,
+    )
+    from relp_tpu_torch.utils.metrics import logger as _log
+
+    config, dev, cf = p.config, p.dev, p.cf
+    m_pad, n_pad = p.m_pad, p.n_pad
+    d_r, d_c, csc_s = _pdlp_scaling(p)
+    with np.errstate(invalid="ignore"):
+        lb_h = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
+        ub_h = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
+    A_s, fo["matrix_format"] = _device_matrix(
+        SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), m_pad, n_pad, config, dev)
+    f64, f32 = torch.float64, torch.float32
+    b_s, c_s, lb_s, ub_s = (torch.as_tensor(v, dtype=f64, device=dev)
+                            for v in (p.b * d_r, p.c * d_c, lb_h, ub_h))
+    reads = 1
+    norm_A = float(_power_norm(A_s))
+    if not np.isfinite(norm_A) or norm_A <= 0:
+        return None
+    state = initial_state(A_s, lb_s, ub_s, 0.9 / norm_A)
+
+    # ---- mixed precision (config.pdlp_precision): f32 rounds for the bulk
+    # of the iterations, the f64 relative KKT of the point after every call,
+    # and an f64 endgame once the f32 fixed-point floor is reached.
+    # Acceptance always uses the f64 KKT. ----
+    precision = str(config.pdlp_precision)
+    if precision == "auto":
+        # f64 on every device: on an H100 the f32 stage took 12x the
+        # iterations of the f64 run on the in-repo max flows (PERF.md),
+        # f64 vector work being as bandwidth-bound as f32 there
+        precision = "f64"
+    f32_stage = precision == "mixed"
+    A32 = b32 = c32 = lb32 = ub32 = None
+    if f32_stage:
+        A32 = A_s.astype(f32)
+        b32, c32, lb32, ub32 = (v.to(f32) for v in (b_s, c_s, lb_s, ub_s))
+        state = cast_state(state, A32, f32)
+    # hand off to f64 once the f32 stage reaches the territory where its
+    # product noise (~1e-7 relative) stops being negligible
+    f32_until = max(10.0 * float(config.pdlp_accept), 100.0 * float(config.pdlp_tol))
+
+    # ---- iterative-refinement frame (config.pdlp_refine): when the f32
+    # stage floors, zoom into the residual problem.  The frame is (xbar,
+    # ybar, dp): the f32 state then solves  min dᵀe  s.t. A e = dp·r,
+    # dp·(lb−xbar) ≤ e ≤ dp·(ub−xbar)  with r = b − A·xbar and d = c − Aᵀybar
+    # computed in f64; the composite full-problem point is X = xbar + x/dp,
+    # Y = ybar + y.  The same device operator serves every subproblem. ----
+    xbar = ybar = None      # None: base frame (the state solves the full problem)
+    dp_zoom = 1.0
+    refines_left = int(config.pdlp_refine) if f32_stage else 0
+    kkt_at_refine = np.inf
+    it = 0                  # state.it, as last read
+    omega = 1.0             # state.omega, as last read
+    f32_iters = refines = 0
+
+    def composite():
+        """Full-problem (X, Y) of the current state, f64 on the device."""
+        X, Y = state.x.to(f64), state.y.to(f64)
+        if xbar is not None:
+            X = xbar + X / dp_zoom
+            Y = ybar + Y
+        return X, Y
+
+    def refine(reason: str) -> bool:
+        """Zoom the f32 stage into the current residual problem."""
+        nonlocal xbar, ybar, dp_zoom, state, b32, c32, lb32, ub32
+        nonlocal best_it, ref_kkt, refines_left, kkt_at_refine, refines, reads, status
+        if (
+            refines_left <= 0
+            or not np.isfinite(best_kkt)
+            # each zoom must have bought a factor 4 before the next is funded
+            or not best_kkt < 0.25 * kkt_at_refine
+        ):
+            return False
+        X, Y = best_xy if best_xy is not None else composite()
+        X = torch.minimum(torch.maximum(X, lb_s), ub_s)
+        r = b_s - A_s.matvec(X)
+        d = A_s.price(c_s, Y)
+        reads += 1
+        dp_new = float(np.clip(1.0 / max(float(r.abs().max()), 1e-14), 1.0, 1e14))
+        # e = 0 must stay feasible (X is inside its bounds by construction);
+        # the ±1e30 cap keeps far-away bounds finite in f32
+        lo = torch.where(torch.isfinite(lb_s), ((lb_s - X) * dp_new).clamp(-1e30, 0.0), lb_s)
+        hi = torch.where(torch.isfinite(ub_s), ((ub_s - X) * dp_new).clamp(0.0, 1e30), ub_s)
+        b32, c32, lb32, ub32 = (v.to(f32) for v in (dp_new * r, d, lo, hi))
+        xbar, ybar, dp_zoom = X, Y, dp_new
+        state = initial_state(A32, lb32, ub32, 0.9 / norm_A, dtype=f32)._replace(it=state.it)
+        status = st.RUNNING
+        refines_left -= 1
+        refines += 1
+        kkt_at_refine = best_kkt
+        best_it = it
+        ref_kkt = np.inf
+        _log.info("pdlp: refinement zoom at it=%d (dp=%.1e, %s, %d left)",
+                  it, dp_new, reason, refines_left)
+        return True
+
+    def promote_to_f64(reason: str, clean: bool = False):
+        nonlocal f32_stage, state, best_it, ref_kkt, variant, xbar, ybar, dp_zoom, status
+        status = st.RUNNING
+        carry_it = state.it
+        Xp = Yp = None
+        if clean and best_xy is not None:
+            # a diverged stage still leaves the best snapshot, a far better
+            # f64 start than from scratch
+            Xp, Yp = best_xy
+            clean = False
+        elif not clean:
+            Xp, Yp = composite()
+        f32_stage = False
+        xbar = ybar = None
+        dp_zoom = 1.0
+        ref_kkt = np.inf
+        if not clean and variant == "halpern" and "avg" in variants_left:
+            # endgame heuristic of the JAX driver: from a near-converged f32
+            # point the restarted-average scheme plunges to 1e-8 where
+            # Halpern anchoring stalls; start the f64 endgame on avg and
+            # keep halpern as the cascade's next scheme
+            variants_left.remove("avg")
+            variants_left.insert(0, "halpern")
+            variant = "avg"
+        state = initial_state(A_s, lb_s, ub_s, 0.9 / norm_A)._replace(it=carry_it)
+        if not clean:
+            # re-anchor at the promoted point: a stale f32-era Halpern anchor
+            # keeps pulling the f64 iterates back toward f32 noise
+            xd = torch.minimum(torch.maximum(Xp, lb_s), ub_s)
+            yd = Yp.clone()
+            axd = A_s.matvec(xd)
+            state = state._replace(
+                x=xd, y=yd, ax=axd, x_anchor=xd, y_anchor=yd, ax_anchor=axd,
+                omega=torch.tensor(omega, dtype=f64, device=dev))
+        best_it = it
+        _log.info("pdlp: switching to f64 rounds at it=%d (%s)", it, reason)
+
+    budget = config.max_iter if config.max_iter > 0 else 1_000_000
+    round_len = int(config.pdlp_round)
+    # rounds per call: the decisions below (f64 KKT of the f32 stage,
+    # plateau, divergence) are taken between calls, at the cadence of the
+    # JAX driver on the CPU; the card has no execution watchdog to stay under
+    rounds_cap = max(1, min(256, 4_000_000 // max(m_pad + n_pad, 1)))
+    # the f32 stage is held against the f64 KKT more often: it cannot see by
+    # itself that it has reached f32_until (its own KKT is f32 noise there,
+    # and in a refinement frame the subproblem's)
+    f32_rounds_cap = min(rounds_cap, _F32_ROUNDS_PER_CALL)
+    best_kkt, best_it = np.inf, 0
+    last_kkt64 = np.inf
+    # snapshot of the best-KKT point: adaptive PDHG can regress after nearly
+    # converging, and the last iterate is then worse than the best one seen
+    best_xy = None
+    # progress reference of the plateau clock: reset on variant switches so
+    # the new scheme gets a full window
+    ref_kkt = np.inf
+    accepted = False
+    # neither restart scheme dominates: on a plateau above the accept bar or
+    # on divergence, cascade to the untried scheme before giving up
+    variant = str(config.pdlp_variant)
+    variants_left = [{"halpern": "avg", "avg": "halpern"}[variant]]
+    status = st.RUNNING
+    stats = {}
+
+    def switch_variant(warm: bool):
+        nonlocal state, variant, best_it, ref_kkt, status
+        status = st.RUNNING
+        ref_kkt = np.inf
+        variant = variants_left.pop(0)
+        if warm:
+            # continue from the current iterate (the algorithm's natural
+            # trajectory); re-anchor and clear the scheme's restart
+            # bookkeeping
+            x0, y0 = state.x, state.y
+            ax0 = (A32 if f32_stage else A_s).matvec(x0)
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            state = state._replace(
+                ax=ax0, x_sum=torch.zeros_like(state.x_sum),
+                y_sum=torch.zeros_like(state.y_sum), steps=zero,
+                x_anchor=x0, y_anchor=y0, ax_anchor=ax0,
+                eta=torch.tensor(0.9 / norm_A, dtype=state.eta.dtype, device=dev),
+                kkt_mu=torch.full_like(state.kkt_mu, np.inf))
+        else:  # diverged: the point is garbage, restart clean
+            state = initial_state(A_s, lb_s, ub_s, 0.9 / norm_A)._replace(it=state.it)
+        best_it = it
+
+    while it < budget:
+        ops = (A32, b32, c32, lb32, ub32) if f32_stage else (A_s, b_s, c_s, lb_s, ub_s)
+        state = solve_pdhg_chunk(
+            *ops, state, round_len=round_len,
+            max_rounds=min(f32_rounds_cap if f32_stage else rounds_cap,
+                           -(-(budget - it) // round_len)),
+            tol=float(config.pdlp_tol), variant=variant, stats=stats, assume_running=True)
+        status, it_now, kkt_own, omega = stats["last"]
+        if f32_stage:
+            f32_iters += it_now - it
+        it = it_now
+        # the f32 stage's own KKT carries ~1e-7 product noise (and, in a
+        # refinement frame, describes the subproblem): every decision below
+        # uses the f64 full-problem KKT of the composite point
+        if f32_stage:
+            Xc, Yc = composite()
+            reads += 1
+            kkt64 = float(kkt_residual(A_s, b_s, c_s, lb_s, ub_s, Xc, Yc))
+        else:
+            Xc, Yc = state.x, state.y
+            kkt64 = kkt_own
+        last_kkt64 = kkt64
+        if _log.isEnabledFor(20):
+            reads += 1  # the objective below
+            _log.info("pdlp chunk it=%d kkt=%.3e%s omega=%.3e obj=%.9e", it, kkt64,
+                      " (f32 rounds)" if f32_stage else "", omega, float(c_s @ Xc))
+        if kkt64 < float(config.pdlp_tol):
+            # the composite point converged; the state's own status can lag
+            # (a refinement subproblem never reaches tol in its own frame)
+            best_kkt = kkt64
+            best_xy = (Xc.clone(), Yc.clone())
+            accepted = True
+            break
+        if status != st.RUNNING:
+            if not f32_stage:
+                break
+            # the f32 rounds declared optimal but the composite f64 KKT
+            # disagrees: zoom again if funded, else go f64
+            if not refine("inner optimum above tol in f64"):
+                promote_to_f64("f32 optimality unconfirmed in f64")
+            continue
+        if not np.isfinite(kkt64) or kkt64 > 1e10 or (
+                best_kkt < 1.0 and kkt64 > max(1e6 * best_kkt, 1e3)):
+            # divergence guard: adaptive-η PDHG can blow up
+            if f32_stage:
+                # rule out precision as the cause before a scheme switch
+                promote_to_f64("f32 divergence", clean=True)
+                continue
+            if variants_left:
+                _log.info("pdlp diverged at it=%d (kkt=%.3e) — restarting with variant=%s",
+                          it, kkt64, variants_left[0])
+                switch_variant(warm=False)
+                continue
+            _log.info("pdlp diverged at it=%d (kkt=%.3e, best=%.3e) — falling back",
+                      it, kkt64, best_kkt)
+            break
+        if kkt64 < best_kkt:
+            best_kkt = kkt64
+            best_xy = (Xc.clone(), Yc.clone())
+        if kkt64 < 0.9 * ref_kkt:
+            # progress beyond noise (against the current scheme's
+            # reference): reset the plateau clock
+            ref_kkt = kkt64
+            best_it = it
+        if f32_stage and xbar is None and best_kkt <= f32_until:
+            # the base f32 stage reached endgame territory: zoom if funded,
+            # else hand off to f64 rounds
+            if not refine(f"zoom at kkt={best_kkt:.1e}"):
+                promote_to_f64(f"f64 endgame territory (kkt={best_kkt:.1e})")
+            continue
+        # the plateau window scales with how long progress took so far; once
+        # the best point meets the acceptance bar the fixed window applies
+        window = max(int(config.pdlp_plateau), best_it // 2)
+        if best_kkt <= float(config.pdlp_accept):
+            window = int(config.pdlp_plateau)
+        if f32_stage:
+            # a stalled f32 stage is promoted on a much shorter window
+            window = max(int(config.pdlp_plateau) // 4, best_it // 4)
+        if config.pdlp_plateau > 0 and it - best_it >= window:
+            if best_kkt <= float(config.pdlp_accept):
+                accepted = True
+                _log.info("pdlp plateau at it=%d: accepting best kkt=%.3e (tol=%.1e "
+                          "unreached, accept=%.1e)", it, best_kkt,
+                          float(config.pdlp_tol), float(config.pdlp_accept))
+            elif f32_stage:
+                # stalled above the accept bar while still in f32: the
+                # precision floor is the first suspect
+                if not refine(f"f32 plateau at kkt={best_kkt:.1e}"):
+                    promote_to_f64(f"f32 plateau at kkt={best_kkt:.1e}")
+                continue
+            elif variants_left:
+                _log.info("pdlp plateau at it=%d: kkt=%.3e > accept=%.1e — continuing "
+                          "with variant=%s", it, kkt64, float(config.pdlp_accept),
+                          variants_left[0])
+                # a stalled-but-sane best point warm-continues; a blown-up
+                # history restarts clean
+                switch_variant(warm=best_kkt < 1e3)
+                continue
+            else:
+                _log.info("pdlp plateau at it=%d: kkt=%.3e > accept=%.1e — falling back",
+                          it, kkt64, float(config.pdlp_accept))
+            break
+    p.iterations += it
+    p.host_reads += reads + stats.get("host_reads", 0)
+    fo.update(iterations=it, f32_iterations=f32_iters, rounds=stats.get("rounds", 0),
+              round_reads=stats.get("host_reads", 0), refines=refines, kkt=float(last_kkt64))
+    if status != st.OPTIMAL and not accepted:
+        return None
+    # the returned point: the best-KKT snapshot when accepted, else the final
+    # composite (full-problem coordinates either way)
+    if accepted and best_xy is not None:
+        (X_fin, Y_fin), kkt_fin = best_xy, best_kkt
+    else:
+        (X_fin, Y_fin), kkt_fin = composite(), last_kkt64
+    fo["kkt"] = float(kkt_fin)
+    x_np = d_c * X_fin.cpu().numpy()
+    r = p.b.copy()
+    r[: cf.m] -= np.asarray(p.A_csc @ x_np[: cf.n])
+    return SimpleNamespace(
+        x=x_np,
+        status=st.OPTIMAL,
+        it=it,
+        phase=2,
+        basis=n_pad + np.arange(m_pad, dtype=np.int32),
+        vstat=np.full(n_pad + m_pad, st.NB_LOWER, np.int32),
+        art_inf=float(np.max(np.abs(r))),
+        pi=d_r * Y_fin.cpu().numpy(),
+        obj=float(p.c @ x_np),
+        art_sign=np.ones(m_pad),
+        viol=float(kkt_fin),
+        vertex=False,  # a first-order point: basis and vstat are placeholders
+    )
+
+
+def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None):
+    """Host sparse-LU dual simplex (simplex/lu_host.py).  ``repair=True``
+    first places every nonbasic on the bound matching sign(d_j) at the given
+    basis (a temporary ±``_DUAL_BOX`` where that side is unbounded, verified
+    inactive afterwards), which makes arbitrary warm bases (crossover
+    guesses) dual feasible.  Returns a SolveOutput-shaped namespace or None."""
+    from relp_tpu_torch.simplex.lu_host import reduced_costs, solve_dual_lu, triangular_crash
+    from relp_tpu_torch.utils.metrics import logger as _log
+
+    cfg, m_pad, n_pad, c = p.config, p.m_pad, p.n_pad, p.c
+    A_pad = p.a_pad_csc()
+    basis0 = np.asarray(warm["basis0"], np.int64)
+    vstat0 = np.asarray(warm["vstat0"], np.int32).copy()
+    art_sign0 = np.asarray(warm["art_sign0"], np.float64)
+    if len(vstat0) < n_pad + m_pad:
+        vstat0 = np.concatenate(
+            [vstat0, np.full(n_pad + m_pad - len(vstat0), st.NB_LOWER, np.int32)])
+    vstat0[basis0] = st.BASIC
+    boxM = _DUAL_BOX
+    box_lo = np.zeros(n_pad, bool)
+    box_hi = np.zeros(n_pad, bool)
+    if repair:
+        d0, _ = reduced_costs(A_pad, c, basis0, art_sign0, n_pad)
+        if d0 is None:
+            # singular guess: rebuild via the strict triangular crash over
+            # the same candidates in priority order, artificials elsewhere
+            cand0 = basis0[basis0 < n_pad]
+            basis0 = triangular_crash(A_pad, cand0, n_pad)
+            vstat0 = vstat0.copy()
+            vstat0[n_pad:] = st.NB_LOWER
+            vstat0[basis0] = st.BASIC
+            dropped = np.setdiff1d(cand0, basis0[basis0 < n_pad])
+            vstat0[dropped] = np.where(
+                np.isfinite(lb_d[dropped]), st.NB_LOWER,
+                np.where(np.isfinite(ub_d[dropped]), st.NB_UPPER, st.NB_FREE),
+            ).astype(np.int32)
+            d0, _ = reduced_costs(A_pad, c, basis0, art_sign0, n_pad)
+            if d0 is None:
+                return None
+        vs = vstat0[:n_pad]
+        nb = (vs != st.BASIC) & (lb_d < ub_d)
+        to_lo = nb & (d0 >= 0)
+        to_hi = nb & (d0 < 0)
+        box_lo = to_lo & ~np.isfinite(lb_d)
+        box_hi = to_hi & ~np.isfinite(ub_d)
+        lb_d = np.where(box_lo, -boxM, lb_d)
+        ub_d = np.where(box_hi, boxM, ub_d)
+        vs = np.where(to_lo, st.NB_LOWER, vs)
+        vs = np.where(to_hi, st.NB_UPPER, vs)
+        vstat0 = np.concatenate([vs.astype(np.int32), vstat0[n_pad:]])
+    out = solve_dual_lu(
+        A_pad, p.b, c, lb_d, ub_d, basis0, vstat0, art_sign0, cfg,
+        p.max_iter if iter_cap is None else min(p.max_iter, iter_cap), n_pad=n_pad)
+    if out is None:
+        return None
+    p.iterations += int(out.it)
+    _log.info("dual-lu done status=%d it=%d pivots=%d flips=%d",
+              int(out.status), int(out.it), out.pivots, out.bound_flips)
+    if int(out.status) != st.OPTIMAL:
+        return None
+    if repair:
+        x = np.asarray(out.x)
+        if bool(np.any((box_lo & (x <= -0.5 * boxM)) | (box_hi & (x >= 0.5 * boxM)))):
+            _log.info("dual-lu: temporary box binds — not a certificate")
+            return None
+    return out
+
+
+def _crossover(p: _Padded, out, fo: dict):
+    """The exact vertex behind a first-order point, or None to keep the
+    point.  Port of the JAX driver's crossover: a dual-informed basis guess
+    (the reduced-cost signs name the nonbasic sets, the |d| ≈ 0 columns
+    ranked by primal interiority are the basic candidates), a provably
+    nonsingular basic set by the strict triangular crash, the classic push
+    of every superbasic to a bound or into the basis on the host LU, a
+    health gate, the dual-simplex cleanup, and the certifying warm re-solve
+    on the device."""
+    from scipy.sparse.linalg import splu
+
+    from relp_tpu_torch.simplex.lu_host import _basis_matrix, primal_push, triangular_crash
+    from relp_tpu_torch.utils.metrics import logger as _log
+
+    cf, m_pad, n_pad = p.cf, p.m_pad, p.n_pad
+    m = cf.m
+    b, c, lb, ub = p.b, p.c, p.lb, p.ub
+    xp = np.asarray(out.x)
+    d_rc = c.copy()
+    d_rc[: cf.n] -= p.A_csc.T @ np.asarray(out.pi)[:m]
+    tol_l = 1e-7 * (1.0 + np.abs(lb))
+    tol_u = 1e-7 * (1.0 + np.abs(ub))
+    tol_d = 1e-7 * (1.0 + np.abs(c))
+    fixed = lb == ub
+    at_l = np.isfinite(lb) & (xp - lb <= tol_l)
+    at_u = np.isfinite(ub) & (ub - xp <= tol_u) & ~at_l
+    want_l = np.isfinite(lb) & (d_rc > tol_d)
+    want_u = np.isfinite(ub) & (d_rc < -tol_d) & ~want_l
+    nb_l = ~fixed & (at_l | want_l) & ~(at_u | want_u)
+    nb_u = ~fixed & (at_u | want_u) & ~nb_l
+    interior = ~(fixed | nb_l | nb_u)
+    depth = np.minimum(np.where(np.isfinite(lb), xp - lb, np.inf),
+                       np.where(np.isfinite(ub), ub - xp, np.inf))
+    cand = np.flatnonzero(interior)
+    cand = cand[np.argsort(-depth[cand])]
+    # taking the "m most interior" columns directly builds a rank-deficient
+    # basis on degenerate instances; the triangular crash over the
+    # candidates in priority order cannot
+    basis0 = triangular_crash(p.a_pad_csc(), cand, n_pad).astype(np.int32)
+    chosen = basis0[basis0 < n_pad]
+    vstat0 = np.where(
+        fixed, st.NB_FIXED,
+        np.where(nb_l, st.NB_LOWER,
+                 np.where(nb_u, st.NB_UPPER,
+                          np.where(np.isfinite(lb), st.NB_LOWER,
+                                   np.where(np.isfinite(ub), st.NB_UPPER, st.NB_FREE)))),
+    ).astype(np.int32)
+    vstat0[chosen] = st.BASIC
+    # push-first crossover: with the leftover superbasics parked at their
+    # first-order values the crash basis is already basic-feasible to
+    # tolerance; primal_push walks each leftover to a bound or into the basis
+    in_cand = np.zeros(n_pad, bool)
+    in_cand[chosen] = True
+    leftover = interior & ~in_cand
+    xfix = np.clip(xp, np.where(np.isfinite(lb), lb, -np.inf),
+                   np.where(np.isfinite(ub), ub, np.inf))
+    vstat0[leftover] = st.NB_FREE  # the push assigns the real one
+    # the push set includes every nonbasic that is not exactly at its
+    # assigned bound: snapping them would displace the start
+    bound_of = np.where(vstat0 == st.NB_LOWER, lb, np.where(vstat0 == st.NB_UPPER, ub, 0.0))
+    off_bound = ((vstat0 != st.BASIC) & ~fixed
+                 & (np.abs(xp - bound_of) > 1e-9 * (1.0 + np.abs(xp))))
+    push_set = leftover | off_bound
+    vstat_full0 = np.concatenate([vstat0, np.full(m_pad, st.NB_LOWER, np.int32)])
+    vstat_full0[basis0] = st.BASIC
+    x0c = np.where((vstat0 == st.NB_LOWER) | (vstat0 == st.NB_FIXED), lb,
+                   np.where(vstat0 == st.NB_UPPER, ub, 0.0))
+    x0c[push_set] = xfix[push_set]
+    x0c = np.where(vstat0 == st.BASIC, 0.0, x0c)
+    r0c = b.copy()
+    r0c[:m] -= np.asarray(p.A_csc @ x0c[: cf.n])
+    art_sign0 = np.where(r0c >= 0, 1.0, -1.0)
+    _log.info("crossover guess: interior=%d chosen=%d leftover=%d nb_l=%d nb_u=%d",
+              int(interior.sum()), len(chosen), int(leftover.sum()),
+              int(nb_l.sum()), int(nb_u.sum()))
+    push = primal_push(p.a_pad_csc(), b, basis0.astype(np.int64), vstat_full0, lb, ub,
+                       push_set, xfix, art_sign0, n_pad, d=d_rc, log=_log)
+    if push is None:
+        return None
+    basis2, vstat2, fo["push_pivots"] = push
+    # health gate: on massively degenerate instances the push can eject
+    # slightly violated basics to bounds they do not hold and compound the
+    # error into an unusable basis; one sparse LU and a bound check tell
+    vsh = vstat2[:n_pad]
+    try:
+        xnh = np.where((vsh == st.NB_LOWER) | (vsh == st.NB_FIXED), lb,
+                       np.where(vsh == st.NB_UPPER, ub, 0.0))
+        xnh = np.where(vsh == st.BASIC, 0.0, xnh)
+        rh = b.copy()
+        rh[:m] -= np.asarray(p.A_csc @ xnh[: cf.n])
+        lu = splu(_basis_matrix(p.a_pad_csc(), basis2.astype(np.int64),
+                                p.host_art_sign(vsh), n_pad).tocsc(), permc_spec="COLAMD")
+        xbh = lu.solve(rh)
+        lbt = np.concatenate([lb, np.zeros(m_pad)])
+        ubt = np.concatenate([ub, np.zeros(m_pad)])
+        viol = float(np.maximum(np.maximum(lbt[basis2] - xbh, xbh - ubt[basis2]), 0.0).max())
+    except RuntimeError:
+        viol = np.inf
+    if not np.isfinite(viol) or viol > 1e-2:
+        _log.info("crossover: pushed basis unhealthy (bound_viol=%.2e) — keeping the "
+                  "certified first-order point", viol)
+        return None
+    warm3 = dict(basis0=basis2.astype(np.int32), vstat0=vsh,
+                 art_sign0=p.host_art_sign(vsh), phase0=1)
+    # dual-LU cleanup between push and certification: restoring primal
+    # feasibility from the pushed statuses is the dual simplex's job
+    out_cl = _run_dual_lu_host(p, lb.copy(), ub.copy(), warm3, repair=False,
+                               iter_cap=4 * m_pad)
+    if out_cl is not None and int(out_cl.status) == st.OPTIMAL:
+        warm3 = dict(basis0=np.asarray(out_cl.basis, np.int32),
+                     vstat0=np.asarray(out_cl.vstat, np.int32)[:n_pad],
+                     art_sign0=np.asarray(out_cl.art_sign), phase0=2)
+    # the certifying re-solve is warm (typically a few pivots) and budgeted:
+    # a grind means the push landed badly and the first-order point is the
+    # better answer.  A device failure (out of memory for the dense inverse
+    # next to the first-order operator, say) propagates to the caller.
+    out_x = p.solve_core(lb, ub, warm3, min(8 * m_pad, p.max_iter))
+    if (out_x is not None and int(out_x.status) == st.OPTIMAL
+            and np.isfinite(float(out_x.obj))):
+        return out_x
+    # the device re-solve could not certify: the host LU dual reoptimizes
+    # from the pushed basis; a failed cleanup keeps the first-order point
+    out_lu = _run_dual_lu_host(p, lb.copy(), ub.copy(), warm3, repair=True, iter_cap=8 * m_pad)
+    if out_lu is not None and int(out_lu.status) == st.OPTIMAL:
+        return out_lu
+    return None
+
+
+def _host(v):
+    """``v`` (a tensor of a device solve, or numpy of a host engine) as numpy."""
+    return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
 def solve_computational_form(
     cf: ComputationalForm,
     config: SolverConfig = DEFAULT_CONFIG,
@@ -131,7 +774,11 @@ def solve_computational_form(
     device: DeviceLike = None,
 ) -> SimplexResult:
     """``warm_start_builder(m_pad, n_pad) -> (basis0, vstat0)`` optionally
-    provides an initial basis."""
+    provides an initial basis.  ``config.algorithm="pdlp"`` (without a warm
+    start or perturbation) first runs the first-order engine and, under
+    ``pdlp_crossover``, recovers the vertex behind its point; where that
+    engine cannot certify optimality the primal simplex solves instead, and
+    ``SolveMetrics.engine`` says which engine's answer this is."""
     dev = resolve_device(device)
     m, n = cf.m, cf.n
 
@@ -150,29 +797,21 @@ def solve_computational_form(
     ub = np.zeros(n_pad)  # padded columns fixed at 0
     lb[:n] = cf.lb
     ub[:n] = cf.ub
-    max_iter = config.resolve_max_iter(m, n)
 
     # mixed-precision pricing only pays once the pricing product is large;
     # for small problems the extra casts and the confirmation outweigh it
     if config.mixed_pricing and m_pad * n_pad < 1 << 17:
         config = dataclasses.replace(config, mixed_pricing=False)
 
-    A_csc = sp.csc_matrix(cf.A)
-
-    def host_art_sign(vstat0):
-        """Artificial signs from the residual at the nonbasic point."""
-        at_lower = (vstat0 == st.NB_LOWER) | (vstat0 == st.NB_FIXED)
-        x0 = np.where(at_lower, lb, np.where(vstat0 == st.NB_UPPER, ub, 0.0))
-        x0 = np.where(vstat0 == st.BASIC, 0.0, x0)
-        r0 = b.copy()
-        r0[:m] -= np.asarray(A_csc @ x0[:n])
-        return np.where(r0 >= 0, 1.0, -1.0)
+    p = _Padded(cf=cf, config=config, dev=dev, m_pad=m_pad, n_pad=n_pad, b=b, c=c,
+                lb=lb, ub=ub, A_csc=sp.csc_matrix(cf.A),
+                max_iter=config.resolve_max_iter(m, n))
 
     if warm_start_builder is not None:
         basis0, vstat0 = warm_start_builder(m_pad, n_pad)
         vstat0 = np.asarray(vstat0, np.int64)
         warm = dict(basis0=np.asarray(basis0, np.int64), vstat0=vstat0,
-                    art_sign0=host_art_sign(vstat0), phase0=1)
+                    art_sign0=p.host_art_sign(vstat0), phase0=1)
     elif config.crash_basis and len(cf.slack_rows):
         slack_of_row = np.full(m_pad, -1, np.int64)
         slack_of_row[cf.slack_rows] = cf.n_structural + np.arange(len(cf.slack_rows))
@@ -182,43 +821,53 @@ def solve_computational_form(
         # sends it: all-artificial basis, refactorized first
         vstat_cold = _cold_vstat(lb, ub).astype(np.int64)
         warm = dict(basis0=n_pad + np.arange(m_pad), vstat0=vstat_cold,
-                    art_sign0=host_art_sign(vstat_cold), phase0=1)
+                    art_sign0=p.host_art_sign(vstat_cold), phase0=1)
 
-    A, fmt = _device_matrix(cf, m_pad, n_pad, config, dev)
-    f64 = dict(dtype=torch.float64, device=dev)
-    b_t, c_t, lb_t, ub_t = (torch.as_tensor(v, **f64) for v in (b, c, lb, ub))
-    warm_t = {
-        k: (v if k == "phase0" else torch.as_tensor(v, device=dev))
-        for k, v in warm.items()
-    }
+    fo = {}
+    engine = "primal"
     with Timer() as t:
         outs = []
-        if config.perturb > 0:
-            # anti-degeneracy: solve with expanded bounds first (ties broken),
-            # then clean up against the true bounds from the perturbed basis
-            lb_p, ub_p = (torch.as_tensor(v, **f64)
-                          for v in _perturbed_bounds(lb, ub, config.perturb))
-            outs.append(solve_core(A, b_t, c_t, lb_p, ub_p, config, max_iter, **warm_t))
-            warm_t = dict(basis0=outs[-1].basis, vstat0=outs[-1].vstat[:n_pad],
-                          art_sign0=outs[-1].art_sign, phase0=int(outs[-1].phase))
-        outs.append(solve_core(A, b_t, c_t, lb_t, ub_t, config, max_iter, **warm_t))
-        out = outs[-1]
+        out = None
+        if config.algorithm == "pdlp" and warm_start_builder is None and config.perturb == 0:
+            out = _run_pdlp(p, fo)  # None: fall back to the primal below
+            engine = "pdlp" if out is not None else "pdlp→primal"
+            if out is not None and config.pdlp_crossover:
+                vertex = _crossover(p, out, fo)
+                if vertex is not None:
+                    out, engine = vertex, "pdlp+crossover"
+        if out is None:
+            if config.perturb > 0:
+                # anti-degeneracy: solve with expanded bounds first (ties
+                # broken), then clean up against the true bounds from the
+                # perturbed basis
+                outs.append(p.solve_core(*_perturbed_bounds(lb, ub, config.perturb),
+                                         warm, p.max_iter))
+                warm = dict(basis0=outs[-1].basis, vstat0=outs[-1].vstat[:n_pad],
+                            art_sign0=outs[-1].art_sign, phase0=int(outs[-1].phase))
+            out = p.solve_core(lb, ub, warm, p.max_iter)
+        outs.append(out)
         status = int(out.status)
-        iterations = sum(int(o.it) for o in outs)
-        x = out.x.cpu().numpy()
+        x = _host(out.x)
 
     kind = st.STATUS_TO_TYPE[status]
-    check_violation = max(float(o.viol) for o in outs)
+    device_outs = [o for o in outs if isinstance(o, SolveOutput)]
+    check_violation = max((float(o.viol) for o in device_outs), default=0.0)
     metrics = SolveMetrics(
-        status=kind.value, iterations=iterations, wall_s=t.elapsed, m=m, n=n,
+        status=kind.value, iterations=p.iterations, wall_s=t.elapsed, m=m, n=n,
         m_padded=m_pad, n_padded=n_pad, art_residual=float(out.art_inf),
-        phase=int(out.phase), nnz=int(A_csc.nnz), matrix_format=fmt,
-        device=str(dev), host_reads=sum(o.host_reads for o in outs),
+        phase=int(out.phase), nnz=int(p.A_csc.nnz),
+        matrix_format=p.device_A()[1] if p._device_A is not None else fo["matrix_format"],
+        device=str(dev), engine=engine, host_reads=p.host_reads,
         check_violation=check_violation,
+        fo_iterations=fo.get("iterations", 0), fo_f32_iterations=fo.get("f32_iterations", 0),
+        fo_rounds=fo.get("rounds", 0), fo_round_reads=fo.get("round_reads", 0),
+        fo_refines=fo.get("refines", 0),
+        fo_kkt=fo.get("kkt", 0.0), push_pivots=fo.get("push_pivots", 0),
     )
     trace = None
     if config.trace_iters:
-        trace = torch.cat([o.trace for o in outs]).cpu().numpy()
+        trace = (torch.cat([o.trace for o in device_outs]).cpu().numpy() if device_outs
+                 else np.zeros((0, 8), np.float32))
         if len(trace):
             _trace_aggregates(metrics, trace)
     metrics.emit()
@@ -227,16 +876,19 @@ def solve_computational_form(
     sense = -1.0 if cf.maximize else 1.0
     result = SimplexResult(
         kind=kind,
-        iterations=iterations,
+        iterations=p.iterations,
         art_residual=float(out.art_inf),
         metrics=metrics,
-        duals=sense * out.pi.cpu().numpy()[:m] * cf.row_scale,
+        duals=sense * _host(out.pi)[:m] * cf.row_scale,
         trace=trace,
         check_violation=check_violation,
-        basis=out.basis.cpu().numpy().astype(np.int32),
-        vstat=out.vstat.cpu().numpy().astype(np.int32),
-        art_sign=out.art_sign.cpu().numpy(),
     )
+    if getattr(out, "vertex", True):
+        # the final basis state, for warm starts and basis files; a
+        # first-order point has none
+        result.basis = _host(out.basis).astype(np.int32)
+        result.vstat = _host(out.vstat).astype(np.int32)
+        result.art_sign = _host(out.art_sign)
     if kind is LinearProgramType.FINITE_OPTIMUM:
         result.objective = cf.objective_of(x[:n])
         result.x_structural = cf.structural_values(x[:n])

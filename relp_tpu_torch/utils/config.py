@@ -5,17 +5,25 @@ for every field this package honours, so a config reads the same in both
 packages.  Fields that existed only for the TPU (``device_chunk_iters``,
 ``refactor_external_m``, ``newton_refactor``, ``bucket_shapes``) are gone;
 fields of engines not yet ported raise ``NotImplementedError`` when set to
-anything but their default, naming the ROADMAP.md entry that will port them.
+a value this package does not run (``algorithm="dual"`` or ``"ipm"``,
+``pdlp_matrix="bricks"``, ``mesh_cols`` other than 1), naming the ROADMAP.md
+entry that will port them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-# field -> (default, ROADMAP.md entry that ports the engine behind it)
+# field -> (values this package runs, ROADMAP.md entry that ports the rest)
 _UNPORTED = {
-    "algorithm": ("primal", "queue 1, dual simplex / IPM / PDLP"),
-    "mesh_cols": (1, "queue 1, multi-device"),
+    "algorithm": (("primal", "pdlp"), "queue 1, dual simplex (item 6) / IPM (item 8)"),
+    "mesh_cols": ((1,), "queue 1, multi-device"),
+    "pdlp_matrix": (("auto", "ell"), "queue 1 item 9, ops/bricks.py"),
+}
+# values the JAX package accepts for those fields: anything else is a ValueError
+_KNOWN = {
+    "algorithm": ("primal", "dual", "pdlp", "ipm"),
+    "pdlp_matrix": ("auto", "ell", "bricks"),
 }
 
 _CHOICES = {
@@ -23,6 +31,9 @@ _CHOICES = {
     "refactor_mode": ("polish", "full"),
     "pricing": ("devex", "dantzig", "bland"),
     "matrix_format": ("auto", "dense", "ell", "hybrid"),
+    "pdlp_variant": ("halpern", "avg"),
+    "pdlp_scale": ("ruiz", "ruiz+pc"),
+    "pdlp_precision": ("auto", "mixed", "f64"),
 }
 
 
@@ -75,7 +86,36 @@ class SolverConfig:
     # "auto" picks ELL for m_pad >= 1024 with short columns, else dense;
     # ELL with a few very long columns becomes "hybrid"
     matrix_format: str = "auto"
+    # "primal": the two-phase primal simplex; "pdlp": the first-order
+    # restarted-PDHG engine (fom/pdhg.py) — two sparse products and vector
+    # work per iteration, no basis inverse; it converges to pdlp_tol relative
+    # KKT and falls back to the primal when it cannot certify optimality
     algorithm: str = "primal"
+    pdlp_tol: float = 1e-8
+    pdlp_round: int = 256
+    # when the best KKT has not improved by 10 % within pdlp_plateau
+    # iterations (0 = never) the driver stops and accepts the best point iff
+    # its KKT <= pdlp_accept, else tries the other variant, else falls back
+    pdlp_accept: float = 1e-6
+    pdlp_plateau: int = 32768
+    # restart scheme: "halpern" (reflected Halpern iteration, restarts to
+    # T(z)) or "avg" (running-average restarts)
+    pdlp_variant: str = "halpern"
+    # "ruiz": 10 ∞-norm Ruiz passes; "ruiz+pc" adds one Pock–Chambolle pass
+    pdlp_scale: str = "ruiz+pc"
+    # recover an exact vertex from the first-order point: dual-informed basis
+    # guess, push of the superbasics on the host LU, warm primal re-solve
+    pdlp_crossover: bool = True
+    # iterate precision: "mixed" = f32 rounds with the f64 KKT of the point
+    # checked after every call and an f64 endgame; "f64" = f64 throughout;
+    # "auto" = f64 (on an H100 the f32 stage cost more iterations than it
+    # saved on every LP measured; "mixed" stays an explicit choice)
+    pdlp_precision: str = "auto"
+    # most refinement zooms of the mixed-precision stage (0 = none)
+    pdlp_refine: int = 4
+    # device matrix of the first-order engine: "auto" and "ell" take the
+    # operator matrix_format picks; "bricks" is not ported
+    pdlp_matrix: str = "auto"
     # anti-degeneracy: expand finite non-fixed bounds by [0.5, 1]·perturb·
     # (1+|bound|) (seeded), solve, then re-solve with the true bounds from
     # the perturbed optimum; 0 = off
@@ -91,8 +131,13 @@ class SolverConfig:
     col_align: int = 128
 
     def __post_init__(self):
-        for name, (default, entry) in _UNPORTED.items():
-            if getattr(self, name) != default:
+        for name, (ported, entry) in _UNPORTED.items():
+            value = getattr(self, name)
+            if name in _KNOWN and value not in _KNOWN[name]:
+                raise ValueError(
+                    f"SolverConfig.{name} must be one of {_KNOWN[name]}, got {value!r}"
+                )
+            if value not in ported:
                 raise NotImplementedError(
                     f"SolverConfig.{name}={getattr(self, name)!r} is not ported "
                     f"to relp_tpu_torch yet (ROADMAP.md {entry})"

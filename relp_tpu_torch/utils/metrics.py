@@ -34,6 +34,10 @@ class SolveMetrics:
     nnz: int = 0              # nonzeros of the lowered A
     matrix_format: str = ""   # device layout actually used
     device: str = ""          # torch device the solve ran on
+    # the engine that produced the answer: "primal", "pdlp" (the first-order
+    # point), "pdlp+crossover" (the vertex recovered from it) or
+    # "pdlp→primal" (the first-order engine gave up and the primal solved)
+    engine: str = ""
     # device-to-host reads the iteration loop made (small flag/scalar
     # copies, each a synchronisation with the device)
     host_reads: int = 0
@@ -45,6 +49,18 @@ class SolveMetrics:
     degenerate_steps: int = 0
     # worst periodic in-loop invariant violation (config.check_every_n)
     check_violation: float = 0.0
+    # the first-order engine (algorithm="pdlp"; 0 when it did not run):
+    # PDHG iterations in all and in the f32 stage, restart rounds, the host
+    # reads made between them (at most one each; the rest of host_reads are
+    # the driver's), refinement zooms, the final f64 relative KKT, and the
+    # crossover's push pivots
+    fo_iterations: int = 0
+    fo_f32_iterations: int = 0
+    fo_rounds: int = 0
+    fo_round_reads: int = 0
+    fo_refines: int = 0
+    fo_kkt: float = 0.0
+    push_pivots: int = 0
 
     @property
     def iters_per_s(self) -> float:

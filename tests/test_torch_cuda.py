@@ -75,6 +75,62 @@ def test_kernels_match_plain_versions(cuda, dtype, tol):
     assert ell_spmv.launches == launches + 1
 
 
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("m,n,Kr", [
+    (4096, 32768, 31),    # the max-flow row pool: 4 segments of 8 slots, the last of 7
+    (4093, 32764, 31),    # unaligned m: the scalar edge path
+    (4098, 1000, 5),      # Kr not a multiple of the segments, m % 4 == 2
+    (777, 64, 1),         # Kr = 1
+    (32768, 4096, 2),     # short rows: one segment
+    (135200, 5000, 7),    # enough rows for 4 a thread with 16-byte loads
+    (135203, 5000, 7),    # ... and its edge
+])
+def test_ell_spmv_matches_plain_version_and_repeats_its_bits(cuda, dtype, tol, m, n, Kr):
+    rng = np.random.default_rng(m + Kr)
+    rdata = torch.as_tensor(rng.standard_normal((Kr, m)), dtype=dtype, device=cuda)
+    rcols = torch.as_tensor(rng.integers(0, n, (Kr, m)).astype(np.int32), device=cuda)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    launches = ell_spmv.launches
+    got, again = ell_spmv(rdata, rcols, x), ell_spmv(rdata, rcols, x)
+    torch.cuda.synchronize()
+    assert ell_spmv.launches == launches + 2
+    assert torch.equal(got, again)
+    # the segments' sums meet in another order than the plain version's
+    torch.testing.assert_close(got, ell_spmv_plain(rdata, rcols, x), rtol=tol,
+                               atol=tol * float(Kr) ** 0.5)
+
+
+@pytest.mark.parametrize("plan", [(1, 31, 256, 1), (2, 16, 128, 1), (4, 8, 64, 4), (8, 4, 32, 4),
+                                  (16, 2, 32, 1), (16, 2, 32, 4), (11, 3, 32, 1)])
+def test_ell_spmv_under_every_launch_shape(cuda, plan, monkeypatch):
+    from relp_tpu_torch.ops import sparse_kernels
+
+    rng = np.random.default_rng(5)
+    m, n, Kr = 4101, 9000, 31
+    monkeypatch.setattr(sparse_kernels, "spmv_plan",
+                        lambda *_: sparse_kernels.SpmvPlan(*plan))
+    for mm in (m, m - 1):        # unaligned, and aligned (4100)
+        rdata = torch.as_tensor(rng.standard_normal((Kr, mm)), device=cuda)
+        rcols = torch.as_tensor(rng.integers(0, n, (Kr, mm)).astype(np.int32), device=cuda)
+        x = torch.as_tensor(rng.standard_normal(n), device=cuda)
+        got = ell_spmv(rdata, rcols, x)
+        torch.testing.assert_close(got, ell_spmv_plain(rdata, rcols, x), rtol=1e-12, atol=1e-11)
+        assert torch.equal(got, ell_spmv(rdata, rcols, x))
+
+
+def test_ell_spmv_refuses_a_plan_that_misses_slots(cuda, monkeypatch):
+    from relp_tpu_torch.ops import sparse_kernels
+
+    monkeypatch.setattr(sparse_kernels, "spmv_plan",
+                        lambda *_: sparse_kernels.SpmvPlan(2, 3, 32, 1))  # covers 6 of 7 slots
+    rdata = torch.ones(7, 64, dtype=torch.float64, device=cuda)
+    rcols = torch.zeros(7, 64, dtype=torch.int32, device=cuda)
+    launches = ell_spmv.launches
+    with pytest.raises(RuntimeError):
+        ell_spmv(rdata, rcols, torch.ones(4, dtype=torch.float64, device=cuda))
+    assert ell_spmv.launches == launches
+
+
 def test_wrapper_refuses_mixed_devices(cuda):
     data = torch.ones(2, 8, dtype=torch.float64, device=cuda)
     idx = torch.zeros(2, 8, dtype=torch.int32)  # left on the CPU

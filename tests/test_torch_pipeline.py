@@ -111,10 +111,15 @@ def test_cli_prints_the_jax_cli_line(tmp_path):
 def test_cli_refuses_flags_not_ported(tmp_path, capsys):
     path = tmp_path / "testprob.mps"
     path.write_text(WIKI_MPS)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--algorithm", "dual", str(path)])
-    assert exc.value.code == 2
-    assert "--algorithm is not ported" in capsys.readouterr().err
+    for flags, said in ((["--algorithm", "dual"], "--algorithm dual is not ported"),
+                        (["--algorithm", "ipm"], "--algorithm ipm is not ported"),
+                        (["--algorithm", "pdlp", "--pdlp-matrix", "bricks"],
+                         "--pdlp-matrix bricks is not ported"),
+                        (["--mip"], "--mip is not ported")):
+        with pytest.raises(SystemExit) as exc:
+            cli.main([*flags, str(path)])
+        assert exc.value.code == 2
+        assert said in capsys.readouterr().err
 
 
 def test_package_never_imports_jax():
@@ -156,7 +161,9 @@ def test_cuda_without_a_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_config_refuses_engines_not_ported():
-    for field, value in (("algorithm", "dual"), ("mesh_cols", 2)):
+    assert SolverConfig(algorithm="pdlp").pdlp_matrix == "auto"
+    for field, value in (("algorithm", "dual"), ("algorithm", "ipm"),
+                         ("pdlp_matrix", "bricks"), ("mesh_cols", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SolverConfig(**{field: value})
     with pytest.raises(ValueError):

@@ -154,3 +154,32 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
         ell_price(data[:0], idx[:0], y)                    # no slots
     with pytest.raises(ValueError):
         ell_price(data, idx, torch.ones(2, 2, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("m", [1, 100, 4093, 4096, 32768, 131072, 1 << 20])
+@pytest.mark.parametrize("Kr", [1, 2, 3, 5, 8, 31, 64, 257])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_spmv_plan_covers_every_slot_exactly_once(m, Kr, itemsize):
+    from relp_tpu_torch.ops.sparse_kernels import spmv_plan
+
+    plan = spmv_plan(m, Kr, itemsize)
+    S, L, TX, R = plan
+    covered = [k for s in range(S) for k in range(s * L, min(Kr, (s + 1) * L))]
+    assert covered == list(range(Kr))
+    assert all(s * L < Kr for s in range(S))             # no empty segment
+    assert 1 <= S <= 16
+    assert R in (1, 4) and (R == 1 or m % 4 == 0)
+    assert 32 <= TX and TX * S <= 512
+    assert S * TX * R * itemsize <= 48 * 1024             # the partial sums fit a block
+    assert -(-m // (TX * R)) < 2 ** 31
+
+
+def test_spmv_plan_splits_deep_rows_and_leaves_short_ones_whole():
+    from relp_tpu_torch.ops.sparse_kernels import spmv_plan
+
+    # the max-flow LP's row pool: few rows, 31 slots deep -> several segments
+    assert spmv_plan(4096, 31, 8).segments > 1
+    # its column pool read as the rows of the transpose: 2 slots -> one segment
+    assert spmv_plan(32768, 2, 8).segments == 1
+    # enough rows to fill the card: no split
+    assert spmv_plan(1 << 20, 31, 8).segments == 1

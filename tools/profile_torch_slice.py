@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of relp_tpu_torch's primal iterations goes, on one NVIDIA GPU.
+"""Where the time of relp_tpu_torch's iterations goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_slice.py [--problem maxflow|dense] [--nodes 4096]
+    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp] [--nodes 4096]
                                          [--iters 600] [--out FILE]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
@@ -13,6 +13,13 @@ host (presolve, computational form), then runs the device solve for
 iteration, the device's busy share of the profiled wall (kernel time summed
 over the run), kernel launches per iteration, and the heaviest operators by
 device and by host time; ``--out`` receives the full profiler tables.
+
+``--problem pdlp`` profiles the first-order engine's rounds instead: the
+max-flow LP is scaled and sent to the device as the driver's ``_run_pdlp``
+does it, and ``solve_pdhg_chunk`` runs ``--iters`` PDHG steps (whole rounds
+of 256) from the initial state, for each restart scheme in f32 and in f64.
+Per iteration it prints launches, kernel time, wall, the device's busy
+share, and the share of ``ell_price`` + ``ell_spmv`` in the kernel time.
 """
 
 from __future__ import annotations
@@ -32,9 +39,103 @@ def _device_attr(avg) -> str:
             else "self_cuda_time_total")
 
 
+def profile_pdlp(args, smi) -> list[str]:
+    """The PDHG rounds of the max-flow LP, each scheme in f32 and f64."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from relp_tpu_torch.fom.pdhg import _power_norm, initial_state, solve_pdhg_chunk
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex import driver
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    general, _ = chip_smoke.slice_problem(args.nodes)
+    presolve(general)
+    cf = build_computational_form(general, scale=True)
+    config, dev = SolverConfig(algorithm="pdlp"), torch.device("cuda")
+    m_pad = driver._round_up(cf.m, config.row_align)
+    n_pad = driver._round_up(cf.n, config.col_align)
+
+    def padded(v, size):
+        out = np.zeros(size)
+        out[: len(v)] = v
+        return out
+
+    p = driver._Padded(cf=cf, config=config, dev=dev, m_pad=m_pad, n_pad=n_pad,
+                       b=padded(cf.b, m_pad), c=padded(cf.c, n_pad), lb=padded(cf.lb, n_pad),
+                       ub=padded(cf.ub, n_pad), A_csc=sp.csc_matrix(cf.A), max_iter=0)
+    d_r, d_c, csc_s = driver._pdlp_scaling(p)
+    with np.errstate(invalid="ignore"):
+        lb_h = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
+        ub_h = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
+    from types import SimpleNamespace
+
+    A64, fmt = driver._device_matrix(SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), m_pad, n_pad,
+                                     config, dev)
+    vec64 = [torch.as_tensor(v, device=dev) for v in (p.b * d_r, p.c * d_c, lb_h, ub_h)]
+    eta0 = 0.9 / float(_power_norm(A64))
+    rounds = max(1, args.iters // config.pdlp_round)
+    its = rounds * config.pdlp_round
+    lines = [f"[profile] PDHG rounds, max-flow N={args.nodes}: m={cf.m} n={cf.n} (padded "
+             f"{m_pad}x{n_pad}) format {fmt} "
+             f"{rounds} rounds of {config.pdlp_round} steps [{smi}]"]
+    for dtype in (torch.float32, torch.float64):
+        A = A64.astype(dtype)
+        b, c, lb, ub = (v.to(dtype) for v in vec64)
+        for variant in ("halpern", "avg"):
+            def run():
+                stats = {}
+                state = initial_state(A, lb, ub, eta0, dtype=dtype)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # tol = 0: no round ends the call early
+                solve_pdhg_chunk(A, b, c, lb, ub, state, round_len=config.pdlp_round,
+                                 max_rounds=rounds, tol=0.0, variant=variant, stats=stats,
+                                 assume_running=True)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, stats
+
+            run()
+            wall, stats = run()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prof_wall, _ = run()
+            avgs = prof.key_averages()
+            attr = _device_attr(avgs[0])
+            kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+            busy_us = sum(getattr(a, attr) for a in kernels)
+            launches = sum(a.count for a in kernels)
+            # per ELL kernel: (launches, device us) summed over its instantiations
+            ell = {k: (sum(a.count for a in kernels if k in a.key),
+                       sum(getattr(a, attr) for a in kernels if k in a.key))
+                   for k in ("ell_price_kernel", "ell_spmv_kernel")}
+            ell_us = sum(us for _, us in ell.values())
+            tag = f"{variant} {'f32' if dtype == torch.float32 else 'f64'}"
+            lines.append(
+                f"[profile] pdlp {tag}: wall {wall / its * 1e6:.1f} us/iter unprofiled "
+                f"({prof_wall / its * 1e6:.1f} profiled); "
+                f"kernel launches {launches / its:.2f}/iter; "
+                f"kernel time {busy_us / its:.2f} us/iter; device busy share "
+                f"{busy_us / 1e6 / prof_wall:.4f}; ell_price + ell_spmv {ell_us / its:.2f} us/iter "
+                f"= {ell_us / max(busy_us, 1e-9):.3f} of kernel time ("
+                + ", ".join(f"{k} {n / its:.3f} launches/iter {us / max(n, 1):.2f} us each"
+                            for k, (n, us) in ell.items())
+                + f"); host reads {stats['host_reads']} in {stats['rounds']} rounds")
+            for a in sorted(kernels, key=lambda a: getattr(a, attr), reverse=True)[:8]:
+                lines.append(f"[profile]   kernel {getattr(a, attr) / its:8.2f} us/iter "
+                             f"{a.count / its:6.2f} launches/iter  {a.key[:90]}")
+            if args.out:
+                lines.append(avgs.table(sort_by="self_cpu_time_total", row_limit=25))
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--problem", choices=("maxflow", "dense"), default="maxflow")
+    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp"), default="maxflow")
     ap.add_argument("--nodes", type=int, default=4096, help="size of the max-flow graph")
     ap.add_argument("--iters", type=int, default=600)
     ap.add_argument("--out", help="file for the full profiler tables")
@@ -54,6 +155,16 @@ def main(argv=None) -> int:
     from relp_tpu_torch.utils.config import SolverConfig
 
     smi = chip_smoke.phase_device()
+    if args.problem == "pdlp":
+        lines = profile_pdlp(args, smi)
+        shown = [line for line in lines if line.startswith("[profile]")]
+        print("\n".join(shown))
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text("\n".join(lines) + "\n")
+            print(f"[profile] tables written to {out}")
+        return 0
     if args.problem == "maxflow":
         general, _ = chip_smoke.slice_problem(args.nodes)
         name = f"max-flow N={args.nodes}"

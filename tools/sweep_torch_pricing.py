@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Sweep the launch shapes of relp_tpu_torch's pricing kernels on one NVIDIA GPU.
+"""Sweep the launch shapes of relp_tpu_torch's pricing and A·x kernels on one NVIDIA GPU.
 
-    python3 tools/sweep_torch_pricing.py [--out FILE]
+    python3 tools/sweep_torch_pricing.py [--out FILE] [--only dense|ell|spmv] [--package-root DIR]
 
 ``dense_price`` and ``ell_price`` take their grids from a few constants of
 their wrappers (``ops/dense_kernels.py``: blocks aimed at, fewest rows of a
@@ -10,8 +10,15 @@ staged) and two of their sources (rows in flight per thread, threads of an
 ``ell_price`` block).  This script builds the source variants, sets the
 constants in turn and prints the device time per launch of each kernel at the
 shapes of ``chip_smoke.py`` (timed as it times them), beside one PyTorch
-call on the same inputs.  The constants in the repository are the ones this
-sweep favoured; PERF.md records the readings.
+call on the same inputs.  ``ell_spmv`` takes its launch shape from
+``sparse_kernels.spmv_plan``; the sweep puts every shape (segments of a row
+∈ {1, 2, 4, 8, 16} × row threads of a block × 1 or 4 rows a thread) in its
+place in turn, holds each against the plain version, and prints the plan's
+own choice last.  With ``--package-root DIR`` the package is taken from another
+checkout (an earlier commit unpacked beside this one), and where that one's
+``ell_spmv`` has no plan to sweep its one launch shape is timed alone, so the
+two can be compared within one run.  The constants in the repository are the ones this sweep
+favoured; PERF.md records the readings.
 """
 
 from __future__ import annotations
@@ -23,9 +30,74 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
+SPMV_SHAPES = (  # label, Kr, m, n: chip_smoke.py's three
+    ("slice Kr=31 m=4096 n=32768", 31, 4096, 32768),
+    ("short rows Kr=2 m=32768 n=4096", 2, 32768, 4096),
+    ("bandwidth Kr=31 m=131072 n=1048576", 31, 131072, 1048576),
+)
+
+
+def sweep_spmv(say, us, rng, dev):
+    """``ell_spmv`` under every launch shape, each held against the plain
+    version (the segments change the order of a row's sum, so within the
+    smoke run's tolerance, and bit for bit between two runs)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from relp_tpu_torch.ops import sparse_kernels
+    from relp_tpu_torch.ops.sparse_kernels import ell_spmv, ell_spmv_plain
+
+    plan_fn = getattr(sparse_kernels, "spmv_plan", None)
+    for label, Kr, m, n in SPMV_SHAPES:
+        cols = torch.as_tensor(rng.integers(0, n, (Kr, m)).astype(np.int32), device=dev)
+        data64 = torch.as_tensor(rng.standard_normal((Kr, m)), device=dev)
+        x64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+        for dtype, tol in ((torch.float32, chip_smoke.F32_TOL),
+                           (torch.float64, chip_smoke.F64_TOL)):
+            data, x = data64.to(dtype), x64.to(dtype)
+            want = ell_spmv_plain(data, cols, x)
+            scale = float(ell_spmv_plain(data.abs(), cols, x.abs()).max())
+            csr = chip_smoke._csr_of_pool(data, cols, n)
+            tag = f"{label} {'f32' if dtype == torch.float32 else 'f64'}"
+            say(f"[sweep] spmv {tag}: plain {us(lambda: ell_spmv_plain(data, cols, x)):.2f} us  "
+                f"torch.mv(sparse CSR) {us(lambda: torch.mv(csr, x)):.2f} us")
+
+            def run(name):
+                got = ell_spmv(data, cols, x)
+                err = float((got - want).abs().max())
+                if err > tol * max(1.0, scale) or not torch.equal(got, ell_spmv(data, cols, x)):
+                    raise AssertionError(f"ell_spmv {tag} {name}: max abs err {err:.3e}, or two "
+                                         "runs gave different bits")
+                return us(lambda: ell_spmv(data, cols, x))
+
+            if plan_fn is None:
+                say(f"[sweep] spmv {tag} this checkout's one launch shape: {run('as is'):.2f} us")
+                continue
+            for rows in (1, 4):
+                for row_threads in (32, 64, 128, 256):
+                    cells = []
+                    for segments in (1, 2, 4, 8, 16):
+                        seg_len = -(-Kr // segments)
+                        if row_threads * segments > 512 or -(-Kr // seg_len) != segments:
+                            continue
+                        plan = sparse_kernels.SpmvPlan(segments, seg_len, row_threads, rows)
+                        sparse_kernels.spmv_plan = lambda *_: plan
+                        cells.append(f"S={segments} {run(plan):.2f}")
+                    say(f"[sweep] spmv {tag} rows/thread {rows} row threads {row_threads} us: "
+                        + "  ".join(cells))
+            sparse_kernels.spmv_plan = plan_fn
+            plan = plan_fn(m, Kr, data.element_size())
+            say(f"[sweep] spmv {tag} spmv_plan's choice {tuple(plan)}: {run(plan):.2f} us")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="file for a copy of the lines printed")
+    ap.add_argument("--only", choices=("dense", "ell", "spmv"),
+                    help="sweep one kernel (default: all three)")
+    ap.add_argument("--package-root", default=str(ROOT),
+                    help="checkout to import relp_tpu_torch from (default: this one)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -33,7 +105,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("sweep_torch_pricing: needs an NVIDIA GPU")
-    sys.path.insert(0, str(ROOT))
+    sys.path[:0] = [str(Path(args.package_root).resolve()), str(ROOT)]
     import chip_smoke
     from relp_tpu_torch.ops import cuda_build, dense_kernels, sparse_kernels
     from relp_tpu_torch.ops.select_epilogue import Selection
@@ -78,13 +150,14 @@ def main(argv=None) -> int:
         c = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
         ell_cases.append((label, data, y, c, sel_for(n, m)))
 
+    want = (lambda kernel: args.only in (None, kernel))
     say(f"[sweep] yardsticks [{smi}]")
-    for label, A, v, c, j0, w, _ in dense_cases:
+    for label, A, v, c, j0, w, _ in dense_cases if want("dense") else ():
         At = A[:, j0:j0 + w].t()
         say(f"[sweep] dense {label}: torch.mv(A.t(), v) {us(lambda: torch.mv(At, v)):.2f} us  "
             f"torch.addmv(c, A.t(), v, alpha=-1) "
             f"{us(lambda: torch.addmv(c, At, v, alpha=-1)):.2f} us")
-    for label, data, y, c, _ in ell_cases:
+    for label, data, y, c, _ in ell_cases if want("ell") else ():
         csr = chip_smoke._csr_of_pool(data, idx, m)
         say(f"[sweep] ell {label}: torch.mv(sparse CSR) {us(lambda: torch.mv(csr, y)):.2f} us")
 
@@ -99,7 +172,7 @@ def main(argv=None) -> int:
         cuda_build.load_kernels()
 
     # ---- dense_price: rows in flight x blocks aimed at x fewest rows of a slice
-    for unroll in (2, 4, 8):
+    for unroll in (2, 4, 8) if want("dense") else ():
         build([f"RELP_DENSE_UNROLL={unroll}"])
         for target in (66, 132, 264, 528):
             for min_rows in (32, 64, 128):
@@ -117,7 +190,7 @@ def main(argv=None) -> int:
     dense_kernels._TARGET_BLOCKS, dense_kernels._MIN_SLICE_ROWS = kept[:2]
 
     # ---- ell_price: threads of a block x most blocks x staged or not
-    for threads in (64, 128, 256):
+    for threads in (64, 128, 256) if want("ell") else ():
         build([f"RELP_ELL_THREADS={threads}"])
         sparse_kernels._PRICE_CHUNK = 4 * threads
         for blocks in (32, 64, 132, 264):
@@ -138,6 +211,10 @@ def main(argv=None) -> int:
      sparse_kernels._PRICE_CHUNK) = kept[2:]
     cuda_build.COMPILE_FLAGS[:] = base_flags
     cuda_build.load_kernels.cache_clear()
+
+    # ---- ell_spmv: segments of a row x row threads of a block x rows a thread
+    if want("spmv"):
+        sweep_spmv(say, us, rng, dev)
 
     if args.out:
         out = Path(args.out)
