@@ -61,11 +61,30 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              their f64 KKT); the max flow at N = 256 without crossover,
              which runs on the dense operator (``dense_price`` at least once
              per iteration).
-9. cli     — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
+9. dual    — the dual simplex and what stands on it.  The 4,096-node max flow
+             through ``api.solve(path, SolverConfig(algorithm="dual"))`` on the
+             ELL operator (``engine == "dual"``, the objective equal to
+             ``scipy``'s, ``ell_price`` at least once per iteration and
+             ``ell_spmv`` at least once per refactorization, ``check_state``
+             on the final state under 1e-6, here and on the dense LP); the
+             same LP at N = 1,024 under
+             ``dual_pricing="devex"``, ``dual_ratio="bisect"`` and
+             ``xl_engine="lu"`` (``engine == "dual-lu"``, with the host LU's
+             update engine); the dense LP 768 × 1536 under the dual against
+             HiGHS, with ``dense_price``'s launches; ``reoptimize_with_bounds``
+             on the dense LP at 256 × 512 after a seeded tenth of the upper
+             bounds was tightened, against a cold primal solve; branch and
+             bound with Gomory cuts on seeded multi-constraint 0/1 knapsacks
+             (32 × 256 under a budget of 200 nodes, 8 × 48 to the optimum,
+             through ``solve_mip`` and through the command line's ``--mip``)
+             against ``scipy.optimize.milp``, solved meanwhile by the second
+             process.
+10. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
 
 Launch counts: every kernel's count is set to 0 just before each path that
 runs it (probe, slice, dense, pdlp) and read just after; launches made to
-compare a kernel with its plain version do not count.  The report's
+compare a kernel with its plain version do not count.  (``dual`` is the
+N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
 ``launches`` is the count of the path whose shape and mode the kernel's
 timed row has: ``pdlp`` at N = 4,096 for ``ell_price`` and ``ell_spmv`` (f64
 ``c − Aᵀy`` and A·x), ``dense`` for ``dense_price`` (the f32 sum row); the
@@ -98,6 +117,10 @@ DENSE_SHAPE = (768, 1536)   # the dense LP's documented default size
 OPTIONS_SHAPE = (256, 512)  # smallest dense size at which mixed pricing stays on
 OPTIONS_NODES = 1024
 PDLP_DENSE_NODES = 256  # max flow small enough for the dense operator
+KNAPSACK_WIDE = (32, 256)   # rows × binary columns; no incumbent within its node budget
+KNAPSACK_WIDE_NODES = 200
+KNAPSACK_SMALL = (8, 48)    # solved to the optimum by the default budget
+MILP_SECONDS = 60           # HiGHS's time limit on a knapsack
 TIMED_RUNS = 50
 HOLD_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at the H100's clock
 F32_TOL = 2e-5          # f32 sums run in another order (and fused) than the plain version
@@ -882,6 +905,236 @@ def phase_pdlp(smi, launches):
     print(f"[pdlp] objective {obj:.12g} scipy {flow:.12g} rel {abs(obj - flow) / abs(flow):.2e}")
 
 
+def knapsack_data(rows, cols):
+    """A seeded multi-constraint 0/1 knapsack: integer weights and profits
+    1-99, capacities at half the row sums."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    W = rng.integers(1, 100, (rows, cols)).astype(float)
+    profit = rng.integers(1, 100, cols).astype(float)
+    return W, profit, np.floor(W.sum(1) / 2)
+
+
+def knapsack_mip(rows, cols):
+    import scipy.sparse as sp
+
+    from relp_tpu_torch.model.elements import Objective, RangedConstraintRelation, VariableType
+    from relp_tpu_torch.model.general_form import GeneralForm, Variable
+
+    W, profit, cap = knapsack_data(rows, cols)
+    return GeneralForm(
+        objective=Objective.MAXIMIZE, A=sp.csc_matrix(W),
+        constraint_types=[RangedConstraintRelation.less() for _ in range(rows)], b=cap,
+        variables=[Variable(name=f"x{j}", cost=float(profit[j]), lower=0.0, upper=1.0,
+                            variable_type=VariableType.INTEGER) for j in range(cols)],
+        name=f"knapsack_{rows}x{cols}")
+
+
+def _milp_reference(shapes):
+    """HiGHS on each knapsack: ``(best objective or None, proven upper bound,
+    optimal?)`` per shape, each under ``MILP_SECONDS``."""
+    import numpy as np
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    out = {}
+    for rows, cols in shapes:
+        W, profit, cap = knapsack_data(rows, cols)
+        ref = milp(-profit, constraints=LinearConstraint(W, -np.inf, cap),
+                   integrality=np.ones(cols), bounds=Bounds(0, 1),
+                   options={"time_limit": MILP_SECONDS})
+        out[(rows, cols)] = (None if ref.x is None else float(-ref.fun),
+                             float(-ref.mip_dual_bound), ref.status == 0)
+    return out
+
+
+def _check_mip(tag, kind, objective, best_bound, nodes, lp_iterations, wall, ref, smi):
+    """Hold one branch-and-bound outcome (a maximisation) to HiGHS's:
+    objectives equal where both are proven, else our incumbent at most
+    HiGHS's bound and our bound at least HiGHS's incumbent."""
+    highs_obj, highs_bound, highs_optimal = ref
+    if kind not in ("finite_optimum", "iteration_limit"):
+        raise AssertionError(f"[dual] {tag}: {kind}")
+    line = (f"[dual] mip {tag}: {kind} nodes {nodes} LP iterations {lp_iterations} wall "
+            f"{wall:.3f} s; HiGHS objective {highs_obj} bound {highs_bound:.6g} "
+            f"{'optimal' if highs_optimal else 'at its time limit'}")
+    if objective is None:
+        print(f"{line}; no incumbent within the node budget, nothing claimed [{smi}]")
+        return
+    tol = 1e-6 * max(1.0, abs(highs_bound))
+    if objective > highs_bound + tol or (highs_obj is not None and best_bound < highs_obj - tol):
+        raise AssertionError(f"{line}: incumbent {objective!r} bound {best_bound!r}")
+    proven = abs(best_bound - objective) <= tol
+    if proven and highs_optimal and abs(objective - highs_obj) > tol:
+        raise AssertionError(f"{line}: objective {objective!r} != HiGHS {highs_obj!r}")
+    print(f"{line}; incumbent {objective:.12g} bound {best_bound:.12g} "
+          f"({'equal to HiGHS' if proven and highs_optimal else 'bracketing HiGHS'}) [{smi}]")
+
+
+def _dual_solve(tag, general, name, fmt, config, want, smi, engine="dual", abs_tol=None):
+    """One ``algorithm="dual"`` solve through ``api.solve``; prints its line."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = _solve_file(general, name, config)
+    obj = _check_optimal("dual", res, fmt)
+    met = res.simplex.metrics
+    tol = abs_tol if abs_tol is not None else OBJ_REL * abs(want)
+    if met.engine != engine or abs(obj - want) > tol:
+        raise AssertionError(f"[dual] {tag}: engine {met.engine!r} objective {obj!r}, expected "
+                             f"{engine!r} and {want!r}")
+    its = max(met.iterations, 1)
+    lu = f" host LU engine {met.lu_engine}" if met.lu_engine else ""
+    print(f"[dual] {tag}: engine {met.engine}{lu} objective {obj:.12g} == {want:.12g} "
+          f"iterations {met.iterations} flips {met.bound_flips} solve_wall {met.wall_s:.3f} s "
+          f"iters/s {met.iters_per_s:.1f} api_wall {wall:.3f} s host_reads {met.host_reads} "
+          f"({met.host_reads / its:.3f}/iter) peak_mem "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{smi}]")
+    return met
+
+
+def phase_dual(smi, launches, highs, milp_ref):
+    """The dual simplex, reoptimization and branch and bound on the card."""
+    import numpy as np
+    import torch
+
+    from relp_tpu_torch import cli
+    from relp_tpu_torch.io.mps_write import export_mps
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.models.branch_bound import solve_mip
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex import driver, dual
+    from relp_tpu_torch.simplex import status as st
+    from relp_tpu_torch.simplex.core import solve_core
+    from relp_tpu_torch.simplex.reoptimize import reoptimize_with_bounds
+    from relp_tpu_torch.simplex.validate import check_state
+    from relp_tpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
+
+    def checked_dual_solve(path, names, *args, **kwargs):
+        """``_dual_solve`` under ``counted``, with ``check_state`` on the final
+        state of its ``solve_core_dual`` call (all four residuals under 1e-6)."""
+        kept = []
+        solve_core_dual = dual.solve_core_dual
+        dual.solve_core_dual = lambda *a, **k: solve_core_dual(*a, final_state=kept, **k)
+        try:
+            with counted(names, {}, path):
+                met = _dual_solve(*args, **kwargs)
+        finally:
+            dual.solve_core_dual = solve_core_dual
+        (K, s), = kept
+        chk = check_state(K.A, K.b, K.c, K.lb, K.ub, s.basis, s.vstat, s.xB, s.Binv, K.art_sign)
+        if not chk.ok(1e-6):
+            raise AssertionError(f"[dual] check_state of the final state: {chk}")
+        its = max(met.iterations, 1)
+        print("[dual] launches "
+              + " ".join(f"{k} {v} ({v / its:.3f}/iter)" for k, v in PATHS[path].items())
+              + "; check_state of the final state: "
+              + " ".join(f"{k} {float(v):.2e}" for k, v in chk._asdict().items()))
+        return met
+
+    # 1. the slice's LP at full width, dual from scratch
+    general, flow = slice_problem()
+    met = checked_dual_solve("dual", ("ell_price", "ell_spmv"), f"max-flow N={N_NODES}", general,
+                             f"maxflow_{N_NODES}", "ell", SolverConfig(algorithm="dual"), flow,
+                             smi, abs_tol=1e-6)
+    refactorizations = met.iterations // DEFAULT_CONFIG.refactor_period
+    if PATHS["dual"]["ell_price"] < met.iterations + refactorizations or \
+            PATHS["dual"]["ell_spmv"] < max(refactorizations, 1):
+        raise AssertionError(f"[dual] launches {PATHS['dual']} for {met.iterations} iterations")
+    torch.cuda.empty_cache()
+
+    # 2. the options of the dual at N = 1,024
+    general, flow = slice_problem(OPTIONS_NODES)
+    for opts in (dict(dual_pricing="devex"), dict(dual_ratio="bisect"), dict(xl_engine="lu")):
+        lu = "xl_engine" in opts
+        with counted(("ell_price", "ell_spmv"), {}, f"dual {opts}"):
+            met = _dual_solve(f"max-flow N={OPTIONS_NODES} {opts}",
+                              slice_problem(OPTIONS_NODES)[0], f"maxflow_{OPTIONS_NODES}",
+                              "csc" if lu else "ell", SolverConfig(algorithm="dual", **opts),
+                              flow, smi, engine="dual-lu" if lu else "dual", abs_tol=1e-6)
+        if lu:  # a host engine: it launches nothing, and says which LU updates ran
+            if met.lu_engine not in ("forrest-tomlin", "product-form"):
+                raise AssertionError(f"[dual] host LU engine {met.lu_engine!r}")
+            del PATHS[f"dual {opts}"]
+
+    # 3. the dense LP at its documented size, on the dense operator
+    m, n = DENSE_SHAPE
+    met = checked_dual_solve("dual dense", ("dense_price",), f"dense LP {m}x{n}",
+                             dense_lp(m, n), f"dense_{m}x{n}", "dense",
+                             SolverConfig(algorithm="dual"), highs.result(), smi)
+    if PATHS["dual dense"]["dense_price"] < met.iterations:
+        raise AssertionError(f"[dual] launches {PATHS['dual dense']} for {met.iterations} "
+                             "iterations")
+
+    # 4. reoptimization: the dense LP at 256 × 512, a seeded tenth of the upper
+    # bounds tightened, from the prior output against a cold primal solve
+    general = dense_lp(*OPTIONS_SHAPE)
+    presolve(general)
+    p = driver._Padded.of(build_computational_form(general, scale=True), DEFAULT_CONFIG,
+                          torch.device("cuda"))
+    A = p.device_A()[0]
+    b_t, c_t, lb_t, ub_t = (torch.as_tensor(v, device=p.dev) for v in (p.b, p.c, p.lb, p.ub))
+    prior = solve_core(A, b_t, c_t, lb_t, ub_t, DEFAULT_CONFIG, p.max_iter)
+    x = prior.x.cpu().numpy()
+    tight = np.random.default_rng(SEED).choice(p.cf.n, p.cf.n // 10, replace=False)
+    ub2 = p.ub.copy()
+    ub2[tight] = np.minimum(ub2[tight], 0.5 * (x[tight] + p.lb[tight]) + 0.25 * ub2[tight])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = reoptimize_with_bounds(A, b_t, c_t, p.lb, ub2, prior, DEFAULT_CONFIG, p.max_iter)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cold = solve_core(A, b_t, c_t, lb_t, torch.as_tensor(ub2, device=p.dev), DEFAULT_CONFIG,
+                      p.max_iter)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not int(prior.status) == int(warm.status) == int(cold.status) == st.OPTIMAL:
+        raise AssertionError(f"[dual] reoptimize: statuses {int(prior.status)} "
+                             f"{int(warm.status)} {int(cold.status)}")
+    if abs(float(warm.obj) - float(cold.obj)) > OBJ_REL * abs(float(cold.obj)) or \
+            int(warm.it) >= int(cold.it):
+        raise AssertionError(f"[dual] reoptimize: objective {float(warm.obj)!r} in "
+                             f"{int(warm.it)} iterations, cold {float(cold.obj)!r} in "
+                             f"{int(cold.it)}")
+    moved = int((x[tight] > ub2[tight] + 1e-9).sum())
+    print(f"[dual] reoptimize dense {OPTIONS_SHAPE[0]}x{OPTIONS_SHAPE[1]}: {len(tight)} upper "
+          f"bounds tightened ({moved} below the prior optimum's value); from the prior basis "
+          f"{int(warm.it)} iterations ({int(warm.flips)} flips) {t1 - t0:.3f} s, cold primal "
+          f"{int(cold.it)} iterations {t2 - t1:.3f} s; objective {float(warm.obj):.12g} rel "
+          f"{abs(float(warm.obj) - float(cold.obj)) / abs(float(cold.obj)):.2e} [{smi}]")
+
+    # 5. branch and bound with Gomory cuts, on the dense operator
+    milp_ref = milp_ref.result()
+    for shape, budget in ((KNAPSACK_WIDE, KNAPSACK_WIDE_NODES), (KNAPSACK_SMALL, 2000)):
+        with counted(("dense_price",), {}, f"mip {shape}"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve_mip(knapsack_mip(*shape), max_nodes=budget)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _check_mip(f"knapsack {shape[0]}x{shape[1]}, solve_mip (4 cut rounds, {budget} nodes)",
+                   res.kind.value, res.objective, res.best_bound, res.nodes, res.lp_iterations,
+                   wall, milp_ref[shape], smi)
+        print(f"[dual] mip launches dense_price {PATHS[f'mip {shape}']['dense_price']}")
+    if not res.is_optimal:
+        raise AssertionError(f"[dual] mip {KNAPSACK_SMALL}: {res.kind}, not the optimum")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "knapsack.mps")
+        export_mps(knapsack_mip(*KNAPSACK_SMALL), path)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--mip", "--json", "-q", path])
+        wall = time.perf_counter() - t0
+    out = json.loads(buf.getvalue())
+    if rc != 0 or out["objective"] != res.objective:
+        raise AssertionError(f"[dual] --mip: rc={rc} {out}, solve_mip gave {res.objective!r}")
+    _check_mip(f"knapsack {KNAPSACK_SMALL[0]}x{KNAPSACK_SMALL[1]}, python -m relp_tpu_torch "
+               "--mip", out["status"], out["objective"], out["best_bound"], out["nodes"],
+               out["lp_iterations"], wall, milp_ref[KNAPSACK_SMALL], smi)
+
+
 def phase_cli():
     from relp_tpu_torch import cli
 
@@ -909,12 +1162,14 @@ def main() -> int:
     # solves it while the device phases run, and leaves once it has answered
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
     highs = pool.submit(_highs_objective, *DENSE_SHAPE)
+    milp_ref = pool.submit(_milp_reference, (KNAPSACK_SMALL, KNAPSACK_WIDE))
     pool.shutdown(wait=False)
     for phase in (phase_build, lambda: phase_probe(launches),
                   lambda: timings.update(phase_kernels(smi)),
                   lambda: phase_slice(smi, launches),
                   lambda: phase_dense(smi, launches, highs),
-                  lambda: phase_options(smi), lambda: phase_pdlp(smi, launches), phase_cli):
+                  lambda: phase_options(smi), lambda: phase_pdlp(smi, launches),
+                  lambda: phase_dual(smi, launches, highs, milp_ref), phase_cli):
         t0 = time.perf_counter()
         phase()
         print(f"[time] {time.perf_counter() - t0:.1f} s", flush=True)

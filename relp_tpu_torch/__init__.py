@@ -4,7 +4,9 @@ A port of the JAX package ``relp_tpu`` (which stays the reference) to
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.  It runs the
 primal path with the JAX package's primal options: MPS file → GeneralForm →
 presolve → computational form → two-phase bounded-variable revised simplex
-(dense, ELL or hybrid operator; dense or eta inverse) → named Solution.
+(dense, ELL or hybrid operator; dense or eta inverse) → named Solution; the
+dual simplex (``algorithm="dual"``) with bound reoptimization and branch and
+bound on it; and the first-order engine (``algorithm="pdlp"``).
 ``python -m relp_tpu_torch.probe`` checks a machine's CUDA toolchain.
 
 The device is explicit: ``api.solve(path, config, device=None)`` with
@@ -15,8 +17,11 @@ Layout (module names mirror the JAX package's):
     model/      problem representations (GeneralForm, elements, Solution)
     io/         MPS parsing, conversion and writing
     presolve/   presolving rules + postsolve reconstruction
-    models/     LP model families (network flows, the dense LP)
-    simplex/    the primal engine (core) and its host driver
+    models/     LP model families (network flows, the dense LP), branch and bound
+    providers/  per-variable feasibility logic
+    simplex/    the primal (core) and dual engines, reoptimization, the host
+                LU engines, state checker and checkpoint, and the host driver
+    fom/        the first-order (restarted PDHG) engine
     ops/        constraint-matrix operators, CUDA kernels, linear algebra
     csrc/       CUDA C++ sources of the kernels (built at first use)
     utils/      config, device selection, metrics

@@ -1,6 +1,8 @@
 """Top-level convenience API: ``solve(path)`` runs the whole pipeline —
-import → GeneralForm → presolve → computational form → primal simplex on
-the device → named solution."""
+import → GeneralForm → presolve → computational form → the engine
+``config.algorithm`` names (primal or dual simplex, or the first-order
+engine) on the device → named solution.  Mixed-integer programs go through
+``relp_tpu_torch.models.branch_bound.solve_mip``."""
 
 from __future__ import annotations
 

@@ -2,11 +2,13 @@
 
 import → GeneralForm → presolve → solve on the device → print the solution,
 as ``python -m relp_tpu`` does, with its primal flags (``--basis-in`` warm
-starts, ``--write-mps`` export, ``--perturb``, ``--inverse``) and its
-first-order ones (``--algorithm pdlp``, ``--no-crossover``, ``--pdlp-*``).
+starts, ``--write-mps`` export, ``--perturb``, ``--inverse``), its dual ones
+(``--algorithm dual``, ``--dual-pricing``, ``--xl-engine``), branch-and-bound
+(``--mip``, ``--mip-cuts``, ``--mip-branch``) and its first-order ones
+(``--algorithm pdlp``, ``--no-crossover``, ``--pdlp-*``).
 The device comes from ``RELP_TPU_TORCH_DEVICE`` (default ``cuda``).  Flags and
 values of the JAX package's CLI whose engines are not ported yet
-(``--algorithm dual|ipm``, ``--pdlp-matrix bricks``, ...) exit with a message
+(``--algorithm ipm``, ``--pdlp-matrix bricks``, ...) exit with a message
 saying so.
 """
 
@@ -24,8 +26,7 @@ from relp_tpu_torch.utils.config import SolverConfig
 # flags of `python -m relp_tpu` that this package does not carry yet
 NOT_PORTED = {
     "--verify", "--ipm-tol", "--ipm-accept", "--ipm-max-iter",
-    "--ipm-ladder", "--mip", "--mip-cuts", "--mip-branch",
-    "--mesh-cols", "--xl-engine", "--dual-pricing", "--ranging",
+    "--ipm-ladder", "--mesh-cols", "--ranging",
 }
 
 
@@ -33,7 +34,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="relp_tpu_torch",
         description="linear program solver on PyTorch/CUDA (two-phase primal "
-        "revised simplex, or first-order restarted PDHG with crossover); the "
+        "revised simplex, dual simplex, branch-and-bound, or first-order "
+        "restarted PDHG with crossover); the "
         "device comes from RELP_TPU_TORCH_DEVICE (default cuda)",
     )
     ap.add_argument("problem_file", help="path to a .mps (free) or .sif (fixed) file")
@@ -62,8 +64,9 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--algorithm", choices=["primal", "dual", "pdlp", "ipm"], default="primal",
-        help="main solve algorithm (pdlp = first-order restarted PDHG, the scale "
-        "path; dual and ipm are not ported yet)",
+        help="main solve algorithm (dual = dual simplex from scratch; "
+        "pdlp = first-order restarted PDHG, the scale path; ipm is not "
+        "ported yet)",
     )
     ap.add_argument(
         "--no-crossover", action="store_true",
@@ -95,6 +98,30 @@ def main(argv=None) -> int:
         help="with --algorithm pdlp: accept a plateaued point whose best "
         "relative KKT is below this",
     )
+    ap.add_argument(
+        "--mip", action="store_true",
+        help="branch-and-bound on INTEGER (INTORG-marked) variables",
+    )
+    ap.add_argument(
+        "--mip-cuts", type=int, default=4, metavar="N",
+        help="with --mip: rounds of root-node Gomory mixed-integer cuts "
+        "(0 = plain branch-and-bound)",
+    )
+    ap.add_argument(
+        "--mip-branch", choices=["pseudo", "fractional"], default="pseudo",
+        help="with --mip: branching variable selection (pseudo-cost "
+        "product rule, learned online; or most-fractional)",
+    )
+    ap.add_argument(
+        "--xl-engine", choices=["auto", "lu", "dense", "primal"], default="auto",
+        help="engine of --algorithm dual: 'lu' forces the host sparse-LU dual "
+        "simplex at any size; 'auto' and 'dense' run the device dual (there "
+        "is no row threshold here); 'primal' selects nothing",
+    )
+    ap.add_argument(
+        "--dual-pricing", choices=["dse", "devex"], default="dse",
+        help="dual row weights (devex skips the per-pivot B⁻¹ matvec)",
+    )
     args, extra = ap.parse_known_args(argv)
     for token in extra:
         flag = token.split("=", 1)[0]
@@ -104,7 +131,7 @@ def main(argv=None) -> int:
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
 
-    for flag, value, refused in (("--algorithm", args.algorithm, ("dual", "ipm")),
+    for flag, value, refused in (("--algorithm", args.algorithm, ("ipm",)),
                                  ("--pdlp-matrix", args.pdlp_matrix, ("bricks",))):
         if value in refused:
             ap.exit(2, f"relp_tpu_torch: {flag} {value} is not ported yet (see "
@@ -119,6 +146,9 @@ def main(argv=None) -> int:
         inverse=args.inverse,
         perturb=args.perturb,
         algorithm=args.algorithm,
+        dual_pricing=args.dual_pricing,
+        mip_branch=args.mip_branch,
+        xl_engine=args.xl_engine,
         pdlp_crossover=not args.no_crossover,
         pdlp_matrix=args.pdlp_matrix,
         pdlp_variant=args.pdlp_variant,
@@ -151,7 +181,26 @@ def main(argv=None) -> int:
 
         from relp_tpu_torch.simplex.driver import solve_general_form
 
-        res = solve_general_form(general, config, initial_basis=initial_basis)
+        if args.mip:
+            from relp_tpu_torch.model.solution import Solution
+            from relp_tpu_torch.models.branch_bound import solve_mip
+
+            mip = solve_mip(general, config, cut_rounds=args.mip_cuts)
+
+            class _R:  # adapt MipResult to the GeneralFormResult surface
+                kind = mip.kind
+                solution = (
+                    Solution(objective_value=mip.objective,
+                             solution_values=sorted(mip.values.items()))
+                    if mip.values is not None else None
+                )
+                simplex = None
+                mip_info = {"nodes": mip.nodes, "lp_iterations": mip.lp_iterations,
+                            "best_bound": mip.best_bound}
+
+            res = _R()
+        else:
+            res = solve_general_form(general, config, initial_basis=initial_basis)
     except (OSError, ImportError_) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -165,6 +214,8 @@ def main(argv=None) -> int:
                 payload["values"] = dict(res.solution.solution_values)
         if res.simplex is not None:
             payload["iterations"] = res.simplex.iterations
+        if getattr(res, "mip_info", None):
+            payload.update(res.mip_info)
         print(json.dumps(payload))
         return 0 if res.kind is LinearProgramType.FINITE_OPTIMUM else 1
 

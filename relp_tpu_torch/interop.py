@@ -3,8 +3,11 @@
 With these, a solve can start in ``relp_tpu`` and finish here: the JAX
 package's operator arrays become this package's operator, and the basis
 state of a JAX ``SolveOutput`` becomes this package's ``solve_core``
-warm-start arguments, and a JAX ``PdhgState`` becomes this package's (and
-back), so both packages' ``solve_pdhg_chunk`` can start from one state.
+warm-start arguments, a JAX ``SolveOutput`` becomes this package's (and back),
+so a prior solve of one package warm-starts ``reoptimize_with_bounds`` of the
+other, a JAX dual ``DState`` becomes this package's, and a JAX ``PdhgState``
+becomes this package's (and back), so both packages' ``solve_pdhg_chunk`` can
+start from one state.
 Nothing here imports JAX; callers pass
 ``np.asarray(...)`` of the JAX arrays.  Every array is copied: a JAX
 array's buffer is read-only, and the port updates some of these tensors in
@@ -14,11 +17,15 @@ memory.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from relp_tpu_torch.fom.pdhg import PdhgState
 from relp_tpu_torch.ops.amatrix import DenseMatrix, EllMatrix
+from relp_tpu_torch.simplex.core import SolveOutput
+from relp_tpu_torch.simplex.dual import DState
 from relp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -76,3 +83,49 @@ def pdhg_state_to_numpy(state: PdhgState) -> dict:
     wrapped in ``jnp.asarray``."""
     return {name: value.detach().cpu().numpy().copy()
             for name, value in state._asdict().items()}
+
+
+def _by_name(fields, names) -> dict:
+    """``fields`` (a mapping, or the values in the order of ``names``) by name."""
+    return fields if hasattr(fields, "keys") else dict(zip(names, fields, strict=True))
+
+
+def _copied(fields, names, dev) -> dict:
+    """A tensor copy on ``dev`` of every named field; integers become int64,
+    the index type of this package's loops."""
+    fields = _by_name(fields, names)
+    out = {}
+    for name in names:
+        a = np.asarray(fields[name])
+        out[name] = torch.tensor(a.astype(np.int64) if a.dtype.kind in "iu" else a, device=dev)
+    return out
+
+
+_JAX_OUTPUT_FIELDS = ("x", "status", "it", "phase", "basis", "vstat", "art_inf", "pi",
+                      "obj", "art_sign", "trace", "viol")
+
+
+def solve_output_from_numpy(fields, *, device: DeviceLike) -> SolveOutput:
+    """This package's ``SolveOutput`` on ``device`` from the fields of a JAX
+    ``SolveOutput`` as numpy arrays (a mapping, or the fields in order, e.g.
+    ``[np.asarray(v) for v in jax_out]``): what ``reoptimize_with_bounds``
+    takes as its prior solve."""
+    return SolveOutput(host_reads=0, **_copied(fields, _JAX_OUTPUT_FIELDS,
+                                               resolve_device(device)))
+
+
+def solve_output_to_numpy(out: SolveOutput) -> dict:
+    """The fields a JAX ``SolveOutput`` has, as numpy arrays (copies, on the
+    host; integers as int32): ``relp_tpu.simplex.core.SolveOutput(**...)``."""
+    arrays = {}
+    for name in _JAX_OUTPUT_FIELDS:
+        a = getattr(out, name).detach().cpu().numpy().copy()
+        arrays[name] = a.astype(np.int32) if a.dtype.kind == "i" else a
+    return arrays
+
+
+def dstate_from_numpy(fields, *, device: DeviceLike) -> DState:
+    """This package's dual ``DState`` on ``device`` from the fields of a JAX
+    ``DState`` as numpy arrays (a mapping, or the fields in order)."""
+    names = [f.name for f in dataclasses.fields(DState)]
+    return DState(**_copied(fields, names, resolve_device(device)))

@@ -1,4 +1,4 @@
-"""The two-phase bounded-variable revised simplex (primal engine)."""
+"""The bounded-variable revised simplex: primal and dual engines and their host driver."""
 
 from relp_tpu_torch.simplex.driver import (
     GeneralFormResult,

@@ -108,6 +108,7 @@ class SolveOutput(NamedTuple):
     # pivot | 2·flip | 4·fresh inverse | 8·Bland, the JAX package's columns
     trace: torch.Tensor
     viol: torch.Tensor      # f64 — worst periodic-invariant violation (0 if off)
+    flips: object = 0       # i64 — bound flips of the dual's ratio test (0 from the primal)
 
 
 def _nonbasic_values(vstat, lb_tot, ub_tot):

@@ -10,6 +10,11 @@ into a named ``Solution``.  With ``perturb`` the core first solves against
 seeded expanded bounds (``_perturbed_bounds``) and then against the true
 bounds, warm-started from the perturbed optimum.
 
+``algorithm="dual"`` (without a warm start or perturbation) first runs the
+dual simplex from the all-artificial basis (``_run_dual`` over
+simplex/dual.py, or over the host sparse-LU dual under ``xl_engine="lu"``)
+and hands to the primal when the dual cannot certify optimality.
+
 ``algorithm="pdlp"`` routes through the first-order engine first
 (``_run_pdlp`` over fom/pdhg.py: host scaling, the operator of the scaled
 matrix, the mixed-precision stage with its refinement zooms, the variant
@@ -135,10 +140,6 @@ def _cold_vstat(lb, ub):
 
 
 _F32_ROUNDS_PER_CALL = 8  # rounds of the first-order f32 stage between two f64 KKT checks
-# temporary-box magnitude of the host dual simplex's repaired start (the data
-# is equilibrated to O(1), so this is absolute in scaled space); the JAX
-# package's ``dual_box`` default
-_DUAL_BOX = 1e7
 
 
 @dataclass
@@ -158,8 +159,27 @@ class _Padded:
     max_iter: int
     iterations: int = 0        # of every engine that ran
     host_reads: int = 0
+    lu_flips: int = 0          # bound flips of the host LU dual's runs
     _a_pad: Optional[sp.csc_matrix] = None
     _device_A: Optional[tuple] = None
+
+    @classmethod
+    def of(cls, cf: ComputationalForm, config: SolverConfig, dev: torch.device) -> "_Padded":
+        """``cf`` padded to multiples of ``row_align``/``col_align``: zero
+        rows, and columns fixed at 0."""
+        m, n = cf.m, cf.n
+        m_pad = _round_up(m, config.row_align)
+        n_pad = _round_up(n, config.col_align)
+
+        def padded(v, size):
+            out = np.zeros(size)
+            out[: len(v)] = v
+            return out
+
+        return cls(cf=cf, config=config, dev=dev, m_pad=m_pad, n_pad=n_pad,
+                   b=padded(cf.b, m_pad), c=padded(cf.c, n_pad), lb=padded(cf.lb, n_pad),
+                   ub=padded(cf.ub, n_pad), A_csc=sp.csc_matrix(cf.A),
+                   max_iter=config.resolve_max_iter(m, n))
 
     def a_pad_csc(self):
         """Padded (m_pad × n_pad) scipy CSC of cf.A, built once."""
@@ -569,10 +589,12 @@ def _run_pdlp(p: _Padded, fo: dict):
 def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None):
     """Host sparse-LU dual simplex (simplex/lu_host.py).  ``repair=True``
     first places every nonbasic on the bound matching sign(d_j) at the given
-    basis (a temporary ±``_DUAL_BOX`` where that side is unbounded, verified
+    basis (a temporary ±``config.dual_box`` where that side is unbounded, verified
     inactive afterwards), which makes arbitrary warm bases (crossover
     guesses) dual feasible.  Returns a SolveOutput-shaped namespace or None."""
-    from relp_tpu_torch.simplex.lu_host import reduced_costs, solve_dual_lu, triangular_crash
+    from relp_tpu_torch.simplex.lu_host import (
+        lu_engine, reduced_costs, solve_dual_lu, triangular_crash,
+    )
     from relp_tpu_torch.utils.metrics import logger as _log
 
     cfg, m_pad, n_pad, c = p.config, p.m_pad, p.n_pad, p.c
@@ -584,7 +606,7 @@ def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None)
         vstat0 = np.concatenate(
             [vstat0, np.full(n_pad + m_pad - len(vstat0), st.NB_LOWER, np.int32)])
     vstat0[basis0] = st.BASIC
-    boxM = _DUAL_BOX
+    boxM = float(cfg.dual_box)
     box_lo = np.zeros(n_pad, bool)
     box_hi = np.zeros(n_pad, bool)
     if repair:
@@ -622,8 +644,9 @@ def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None)
     if out is None:
         return None
     p.iterations += int(out.it)
-    _log.info("dual-lu done status=%d it=%d pivots=%d flips=%d",
-              int(out.status), int(out.it), out.pivots, out.bound_flips)
+    p.lu_flips += int(out.bound_flips)
+    _log.info("dual-lu done status=%d it=%d pivots=%d flips=%d engine=%s",
+              int(out.status), int(out.it), out.pivots, out.bound_flips, lu_engine())
     if int(out.status) != st.OPTIMAL:
         return None
     if repair:
@@ -631,6 +654,68 @@ def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None)
         if bool(np.any((box_lo & (x <= -0.5 * boxM)) | (box_hi & (x >= 0.5 * boxM)))):
             _log.info("dual-lu: temporary box binds — not a certificate")
             return None
+    return out
+
+
+def _dual_start(p: _Padded):
+    """The dual simplex's start from scratch: the all-artificial basis is
+    dual feasible once every nonbasic sits on the bound matching sign(c_j)
+    (π = 0 ⇒ d = c); a column without a finite bound on that side gets a
+    temporary ±``config.dual_box``.  Returns the boxed bounds, the
+    warm-start arguments and the masks of the boxed columns."""
+    cf, b, c, lb, ub = p.cf, p.b, p.c, p.lb, p.ub
+    boxM = float(p.config.dual_box)
+    fixed = lb == ub
+    need_low = (c >= 0) & ~np.isfinite(lb) & ~fixed
+    need_up = (c < 0) & ~np.isfinite(ub) & ~fixed
+    lb_d = np.where(need_low, -boxM, lb)
+    ub_d = np.where(need_up, boxM, ub)
+    vstat0 = np.where(fixed, st.NB_FIXED,
+                      np.where(c >= 0, st.NB_LOWER, st.NB_UPPER)).astype(np.int64)
+    x0 = np.where(vstat0 == st.NB_UPPER, ub_d, lb_d)
+    r0 = b.copy()
+    r0[: cf.m] -= np.asarray(p.A_csc @ x0[: cf.n])
+    warm = dict(basis0=p.n_pad + np.arange(p.m_pad), vstat0=vstat0,
+                art_sign0=np.where(r0 >= 0, 1.0, -1.0))
+    return lb_d, ub_d, warm, need_low, need_up
+
+
+def _run_dual(p: _Padded, fo: dict):
+    """Dual simplex from scratch (``config.algorithm="dual"``) from
+    ``_dual_start``; the temporary box is verified inactive at the optimum.
+    ``xl_engine="lu"`` runs the host sparse-LU dual (simplex/lu_host.py), any
+    other value the device dual (simplex/dual.py).  Returns the output on a
+    trusted OPTIMAL, else None (the caller falls back to the primal).
+    ``fo`` receives the engine's name and its flips."""
+    from relp_tpu_torch.simplex.dual import solve_core_dual
+    from relp_tpu_torch.utils.metrics import logger as _log
+
+    cfg = p.config
+    boxM = float(cfg.dual_box)
+    lb_d, ub_d, warm, need_low, need_up = _dual_start(p)
+    if cfg.xl_engine == "lu":
+        from relp_tpu_torch.simplex.lu_host import lu_engine
+
+        fo.update(engine="dual-lu", matrix_format="csc", lu_engine=lu_engine())
+        out = _run_dual_lu_host(p, lb_d, ub_d, warm)
+        fo["bound_flips"] = p.lu_flips
+        if out is None:
+            return None
+    else:
+        fo["engine"] = "dual"
+        out = solve_core_dual(p.device_A()[0], p.b, p.c, lb_d, ub_d, cfg=cfg,
+                              max_iter=p.max_iter, **warm)
+        p.iterations += int(out.it)
+        p.host_reads += out.host_reads
+        fo["bound_flips"] = int(out.flips)
+        _log.info("dual done it=%d status=%d flips=%d art=%.3e obj=%.9e", int(out.it),
+                  int(out.status), fo["bound_flips"], float(out.art_inf), float(out.obj))
+        if int(out.status) != st.OPTIMAL:
+            return None
+    x = _host(out.x)
+    if bool(np.any((need_low & (x <= -0.5 * boxM)) | (need_up & (x >= 0.5 * boxM)))):
+        _log.info("dual: temporary box binds — not a certificate for the original")
+        return None
     return out
 
 
@@ -776,9 +861,11 @@ def solve_computational_form(
     """``warm_start_builder(m_pad, n_pad) -> (basis0, vstat0)`` optionally
     provides an initial basis.  ``config.algorithm="pdlp"`` (without a warm
     start or perturbation) first runs the first-order engine and, under
-    ``pdlp_crossover``, recovers the vertex behind its point; where that
-    engine cannot certify optimality the primal simplex solves instead, and
-    ``SolveMetrics.engine`` says which engine's answer this is."""
+    ``pdlp_crossover``, recovers the vertex behind its point;
+    ``config.algorithm="dual"`` (under the same conditions) first runs the
+    dual simplex from scratch.  Where that engine cannot certify optimality
+    the primal simplex solves instead, and ``SolveMetrics.engine`` says which
+    engine's answer this is."""
     dev = resolve_device(device)
     m, n = cf.m, cf.n
 
@@ -787,25 +874,12 @@ def solve_computational_form(
     if m == 0 or n == 0:
         return _solve_trivial(cf)
 
-    m_pad = _round_up(m, config.row_align)
-    n_pad = _round_up(n, config.col_align)
-    b = np.zeros(m_pad)
-    b[:m] = cf.b
-    c = np.zeros(n_pad)
-    c[:n] = cf.c
-    lb = np.zeros(n_pad)
-    ub = np.zeros(n_pad)  # padded columns fixed at 0
-    lb[:n] = cf.lb
-    ub[:n] = cf.ub
-
+    p = _Padded.of(cf, config, dev)
+    m_pad, n_pad, lb, ub = p.m_pad, p.n_pad, p.lb, p.ub
     # mixed-precision pricing only pays once the pricing product is large;
     # for small problems the extra casts and the confirmation outweigh it
     if config.mixed_pricing and m_pad * n_pad < 1 << 17:
-        config = dataclasses.replace(config, mixed_pricing=False)
-
-    p = _Padded(cf=cf, config=config, dev=dev, m_pad=m_pad, n_pad=n_pad, b=b, c=c,
-                lb=lb, ub=ub, A_csc=sp.csc_matrix(cf.A),
-                max_iter=config.resolve_max_iter(m, n))
+        p.config = config = dataclasses.replace(config, mixed_pricing=False)
 
     if warm_start_builder is not None:
         basis0, vstat0 = warm_start_builder(m_pad, n_pad)
@@ -835,6 +909,9 @@ def solve_computational_form(
                 vertex = _crossover(p, out, fo)
                 if vertex is not None:
                     out, engine = vertex, "pdlp+crossover"
+        if config.algorithm == "dual" and warm_start_builder is None and config.perturb == 0:
+            out = _run_dual(p, fo)  # None: fall back to the primal below
+            engine = fo["engine"] if out is not None else "dual→primal"
         if out is None:
             if config.perturb > 0:
                 # anti-degeneracy: solve with expanded bounds first (ties
@@ -857,7 +934,8 @@ def solve_computational_form(
         m_padded=m_pad, n_padded=n_pad, art_residual=float(out.art_inf),
         phase=int(out.phase), nnz=int(p.A_csc.nnz),
         matrix_format=p.device_A()[1] if p._device_A is not None else fo["matrix_format"],
-        device=str(dev), engine=engine, host_reads=p.host_reads,
+        device=str(dev), engine=engine, lu_engine=fo.get("lu_engine", ""),
+        host_reads=p.host_reads, bound_flips=fo.get("bound_flips", 0),
         check_violation=check_violation,
         fo_iterations=fo.get("iterations", 0), fo_f32_iterations=fo.get("f32_iterations", 0),
         fo_rounds=fo.get("rounds", 0), fo_round_reads=fo.get("round_reads", 0),

@@ -20,10 +20,10 @@ solves are serial DAG traversals.  The device owns the first-order path
 crossover: ``triangular_crash``, ``reduced_costs``, ``primal_push`` and the
 dual-simplex cleanup ``solve_dual_lu``.
 
-The JAX package prefers a native Forrest–Tomlin engine (``simplex/ftlu.py``
-over ``native/ftlu.cpp``) where its build is available and falls back to the
-product form; that engine is not ported yet (ROADMAP.md queue 1 item 6), so
-``_make_lu`` always gives the product form here.
+Where its build is available the update engine is the native
+Forrest–Tomlin LU (``_FtEngine`` over simplex/ftlu.py), as in the JAX
+package; otherwise, or under ``RELP_TPU_NO_FTLU=1``, the product form.
+``lu_engine()`` names the one ``_make_lu`` gives.
 """
 
 from __future__ import annotations
@@ -80,8 +80,51 @@ class _LuEta:
         return 0
 
 
+class _FtEngine:
+    """Native Forrest–Tomlin engine behind the lu_host call surface: spike
+    column, rotate-to-back and one row eta keeping U triangular
+    (native/ftlu.cpp).  ``replace`` consumes the ORIGINAL entering column (FT
+    updates factor structure, not the solved column), so it needs the
+    problem matrix at hand."""
+
+    def __init__(self, B_csc, A_csc):
+        from relp_tpu_torch.simplex.ftlu import FtLU
+
+        self.ft = FtLU(B_csc)  # raises RuntimeError when singular
+        self.A = A_csc
+        self.nupdates = 0
+
+    def ftran(self, v: np.ndarray) -> np.ndarray:
+        return self.ft.ftran(v)
+
+    def btran(self, v: np.ndarray) -> np.ndarray:
+        return self.ft.btran(v)
+
+    def replace(self, r: int, q: int, u: np.ndarray) -> int:
+        lo, hi = self.A.indptr[q], self.A.indptr[q + 1]
+        rc = self.ft.update(r, self.A.indices[lo:hi], self.A.data[lo:hi])
+        self.nupdates += 1
+        return rc
+
+
+def lu_engine() -> str:
+    """The update engine ``_make_lu`` gives: ``"forrest-tomlin"`` when the
+    native library is available, else ``"product-form"`` (also under
+    ``RELP_TPU_NO_FTLU=1``)."""
+    import os
+
+    if not os.environ.get("RELP_TPU_NO_FTLU"):
+        from relp_tpu_torch.simplex import ftlu as _ftlu
+
+        if _ftlu.available():
+            return "forrest-tomlin"
+    return "product-form"
+
+
 def _make_lu(B_csc, A_csc):
-    """The factorized basis with its update engine (the product form)."""
+    """The factorized basis with its update engine (``lu_engine()``)."""
+    if lu_engine() == "forrest-tomlin":
+        return _FtEngine(B_csc, A_csc)
     return _LuEta(B_csc, A_csc)
 
 

@@ -5,7 +5,7 @@ for every field this package honours, so a config reads the same in both
 packages.  Fields that existed only for the TPU (``device_chunk_iters``,
 ``refactor_external_m``, ``newton_refactor``, ``bucket_shapes``) are gone;
 fields of engines not yet ported raise ``NotImplementedError`` when set to
-a value this package does not run (``algorithm="dual"`` or ``"ipm"``,
+a value this package does not run (``algorithm="ipm"``,
 ``pdlp_matrix="bricks"``, ``mesh_cols`` other than 1), naming the ROADMAP.md
 entry that will port them.
 """
@@ -16,7 +16,7 @@ import dataclasses
 
 # field -> (values this package runs, ROADMAP.md entry that ports the rest)
 _UNPORTED = {
-    "algorithm": (("primal", "pdlp"), "queue 1, dual simplex (item 6) / IPM (item 8)"),
+    "algorithm": (("primal", "dual", "pdlp"), "queue 1, IPM (item 8)"),
     "mesh_cols": ((1,), "queue 1, multi-device"),
     "pdlp_matrix": (("auto", "ell"), "queue 1 item 9, ops/bricks.py"),
 }
@@ -34,6 +34,10 @@ _CHOICES = {
     "pdlp_variant": ("halpern", "avg"),
     "pdlp_scale": ("ruiz", "ruiz+pc"),
     "pdlp_precision": ("auto", "mixed", "f64"),
+    "dual_pricing": ("dse", "devex"),
+    "dual_ratio": ("bisect", "sort"),
+    "mip_branch": ("pseudo", "fractional"),
+    "xl_engine": ("auto", "lu", "dense", "primal"),
 }
 
 
@@ -86,7 +90,9 @@ class SolverConfig:
     # "auto" picks ELL for m_pad >= 1024 with short columns, else dense;
     # ELL with a few very long columns becomes "hybrid"
     matrix_format: str = "auto"
-    # "primal": the two-phase primal simplex; "pdlp": the first-order
+    # "primal": the two-phase primal simplex; "dual": the bounded-variable
+    # dual simplex from the all-artificial basis (simplex/dual.py), which
+    # falls back to the primal when it cannot certify optimality; "pdlp": the first-order
     # restarted-PDHG engine (fom/pdhg.py) — two sparse products and vector
     # work per iteration, no basis inverse; it converges to pdlp_tol relative
     # KKT and falls back to the primal when it cannot certify optimality
@@ -116,6 +122,33 @@ class SolverConfig:
     # device matrix of the first-order engine: "auto" and "ell" take the
     # operator matrix_format picks; "bricks" is not ported
     pdlp_matrix: str = "auto"
+    # temporary-box magnitude of the dual start: a column with no finite
+    # bound on the side sign(c_j) asks for gets ±dual_box there (the data is
+    # equilibrated to O(1), so this is absolute in scaled space); a box that
+    # binds at the optimum is no certificate and the primal solves instead
+    dual_box: float = 1e7
+    # dual row weights: "dse" keeps the exact steepest-edge norms
+    # β_i = ‖B⁻¹[i,:]‖² (Forrest–Goldfarb: one more B⁻¹ matvec per pivot);
+    # "devex" the reference-weight approximation from the FTRAN column alone;
+    # a refactorization resets both to the exact norms
+    dual_pricing: str = "dse"
+    # bound-flipping ratio test: "sort" finds the blocking ratio by one
+    # stable sort and a cumulative sum, "bisect" by 64 bisection steps of
+    # masked O(n) reductions; the same pivot up to exact-ratio ties.  The JAX
+    # package's default is "bisect" (sorts are slow on a TPU); on an H100 the
+    # bisection is 512 dependent small launches of the 800 of an iteration
+    # and "sort" takes half the wall per iteration (PERF.md), so it is the
+    # default here
+    dual_ratio: str = "sort"
+    # engine of algorithm="dual": "auto" and "dense" run the device dual at
+    # every size (there is no size threshold here: the JAX package's exists
+    # for the TPU's memory), "lu" the host sparse-LU dual (simplex/lu_host.py)
+    # at any size; "primal" is accepted and selects nothing: the JAX package's
+    # externally refactorized primal is this package's only primal loop
+    xl_engine: str = "auto"
+    # branch-and-bound variable selection: "pseudo" = pseudo-cost product
+    # rule learned from every solved child; "fractional" = most fractional
+    mip_branch: str = "pseudo"
     # anti-degeneracy: expand finite non-fixed bounds by [0.5, 1]·perturb·
     # (1+|bound|) (seeded), solve, then re-solve with the true bounds from
     # the perturbed optimum; 0 = off

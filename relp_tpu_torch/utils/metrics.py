@@ -35,13 +35,19 @@ class SolveMetrics:
     matrix_format: str = ""   # device layout actually used
     device: str = ""          # torch device the solve ran on
     # the engine that produced the answer: "primal", "pdlp" (the first-order
-    # point), "pdlp+crossover" (the vertex recovered from it) or
-    # "pdlp→primal" (the first-order engine gave up and the primal solved)
+    # point), "pdlp+crossover" (the vertex recovered from it), "pdlp→primal"
+    # (the first-order engine gave up and the primal solved), "dual" (the
+    # device dual simplex), "dual-lu" (the host sparse-LU dual) or
+    # "dual→primal" (the dual could not certify and the primal solved)
     engine: str = ""
+    # update engine of the host LU under "dual-lu": "forrest-tomlin" (the
+    # native library) or "product-form"
+    lu_engine: str = ""
     # device-to-host reads the iteration loop made (small flag/scalar
     # copies, each a synchronisation with the device)
     host_reads: int = 0
-    # per-iteration stream aggregates (config.trace_iters; 0 when off)
+    # per-iteration stream aggregates (config.trace_iters; 0 when off);
+    # bound_flips also counts the flips of a dual engine's ratio test
     pivots: int = 0
     bound_flips: int = 0
     refresh_iters: int = 0

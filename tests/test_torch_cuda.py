@@ -334,3 +334,67 @@ def test_select_ties_go_to_the_lowest_column_across_blocks(cuda, dtype):
     assert both() == [(5000, True, -1.0)] * 2
     sel["vstat"][:] = 2                          # nothing may enter: the window's first column
     assert both(100, 2000) == [(100, False, -1.0)] * 2
+
+
+def _dual_start_of(general, dev, **opts):
+    """The padded problem, its dual start and a fresh kernel and state on ``dev``."""
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex import driver
+    from relp_tpu_torch.simplex.dual import DualKernel, initial_state
+
+    presolve(general)
+    cf = build_computational_form(general, scale=True)
+    cfg = SolverConfig(algorithm="dual", matrix_format="ell", refactor_mode="full", **opts)
+    p = driver._Padded.of(cf, cfg, dev)
+    lb_d, ub_d, warm, _, _ = driver._dual_start(p)
+    A = p.device_A()[0]
+    vec = [torch.tensor(v, dtype=torch.float64, device=dev)
+           for v in (p.b, p.c, lb_d, ub_d, warm["art_sign0"])]
+    K = DualKernel(A, *vec, cfg, 10_000)
+    s = K.refactor(initial_state(warm["basis0"], warm["vstat0"], p.m_pad, p.n_pad, cfg, dev))
+    return K, s
+
+
+@pytest.mark.parametrize("opts", [{"dual_ratio": "bisect"}, {"dual_ratio": "sort"},
+                                  {"dual_ratio": "sort", "dual_pricing": "devex"}],
+                         ids=["bisect", "sort", "sort-devex"])
+def test_dual_step_on_the_card_matches_the_cpu_step(cuda, opts):
+    # the same start on both devices, 40 steps side by side: the card's step
+    # launches ell_price (pivot row) and ell_spmv (flips), the CPU's their
+    # plain versions; every field within 1e-9, the pivots equal
+    import dataclasses
+
+    arcs = random_arcs(300, 8, seed=5)
+    Kc, sc = _dual_start_of(max_flow_lp(300, arcs, 0, 299), torch.device("cpu"), **opts)
+    Kg, sg = _dual_start_of(max_flow_lp(300, arcs, 0, 299), cuda, **opts)
+    price0, spmv0 = ell_price.launches, ell_spmv.launches
+    for _ in range(40):
+        sc, fc = Kc.step(sc)
+        sg, fg = Kg.step(sg)
+        assert fg.tolist() == fc.tolist()
+        for f in dataclasses.fields(sc):
+            a, b = getattr(sg, f.name).cpu(), getattr(sc, f.name)
+            if a.dtype.is_floating_point:
+                assert torch.allclose(a, b, rtol=1e-9, atol=1e-9), f.name
+            else:
+                assert torch.equal(a, b), f.name
+    assert ell_price.launches - price0 >= 40 and ell_spmv.launches - spmv0 >= 40
+    assert Kg.host_reads == 0
+
+
+def test_dual_on_the_card_reaches_the_max_flow(cuda, tmp_path):
+    n_nodes = 300
+    arcs = random_arcs(n_nodes, 8, seed=5)
+    u, v, cap = (np.array(col) for col in zip(*arcs))
+    graph = sp.csr_matrix((cap.astype(np.int32), (u, v)), shape=(n_nodes, n_nodes))
+    flow = maximum_flow(graph, 0, n_nodes - 1).flow_value
+    path = tmp_path / "maxflow.mps"
+    export_mps(max_flow_lp(n_nodes, arcs, 0, n_nodes - 1), path)
+    for opts in ({}, {"dual_ratio": "bisect"}, {"xl_engine": "lu"}):
+        res = api.solve(path, SolverConfig(algorithm="dual", matrix_format="ell", **opts))
+        met = res.simplex.metrics
+        assert res.kind.value == "finite_optimum"
+        assert res.solution.objective_value == pytest.approx(flow, abs=1e-6)
+        assert met.engine == ("dual-lu" if opts.get("xl_engine") else "dual")
+        assert met.device == "cuda"

@@ -2,10 +2,10 @@
 JAX package's (relp_tpu/simplex/lu_host.py).
 
 Both are the same numpy/scipy code, so the same seeded inputs must give
-equal bases, statuses, pivot counts and vectors, exactly.  The JAX package
-prefers its native Forrest–Tomlin engine where that library builds; the
-port carries only the product-form engine, so the JAX side runs with
-``RELP_TPU_NO_FTLU=1`` (its documented switch to the product form).
+equal bases, statuses, pivot counts and vectors, exactly.  Both packages
+prefer their native Forrest–Tomlin engine where that library builds
+(tests/test_torch_ftlu.py holds them against each other on it); here both
+run with ``RELP_TPU_NO_FTLU=1``, the documented switch to the product form.
 """
 
 import numpy as np
@@ -129,6 +129,7 @@ def test_primal_push_equal(seed):
 
 
 def test_the_port_has_the_product_form_only():
+    # under RELP_TPU_NO_FTLU=1 (this module's fixture), as in the JAX package
     A, *_ = _boxed_lp(0)
     B = A[:, -A.shape[0]:]
     assert isinstance(torch_lu._make_lu(B.tocsc(), A), torch_lu._LuEta)

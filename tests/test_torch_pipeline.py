@@ -93,9 +93,28 @@ def test_api_solve_max_flow_matches_jax_and_scipy(tmp_path):
     assert rt.simplex.metrics.device == "cpu"
 
 
-def _run(module, path, env_extra):
+@pytest.mark.parametrize("text", [WIKI_MPS, TESTPROB], ids=["wiki", "testprob"])
+def test_native_scanner_gives_what_the_python_parser_gives(tmp_path, text, monkeypatch):
+    from relp_tpu_torch.io import import_mps, native
+    from relp_tpu_torch.utils import native_build
+
+    assert native.native_available()
+    # the port's own build, beside its CUDA kernels' and not in native/_build/
+    assert native_build.BUILD_DIR == PORT_DIR / "_build"
+    assert list(native_build.BUILD_DIR.glob("libmps_scan_*.so"))
+    path = tmp_path / "problem.mps"
+    path.write_text(text)
+    scanned = import_mps(path)
+    monkeypatch.setenv("RELP_TPU_NO_NATIVE", "1")
+    parsed = import_mps(path)
+    for field in dataclasses.fields(parsed):
+        if field.name != "cost_row_name":  # the scanner leaves it empty: unused downstream
+            assert getattr(scanned, field.name) == getattr(parsed, field.name), field.name
+
+
+def _run(module, path, env_extra, flags=()):
     env = dict(os.environ, PYTHONPATH=str(ROOT), **env_extra)
-    return subprocess.run([sys.executable, "-m", module, "-q", str(path)], cwd=ROOT,
+    return subprocess.run([sys.executable, "-m", module, "-q", *flags, str(path)], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
 
 
@@ -108,14 +127,68 @@ def test_cli_prints_the_jax_cli_line(tmp_path):
     assert port.stdout.strip() == ref.stdout.strip() == "objective -8"
 
 
+# a small 0/1 knapsack (min −5a −7b −4c −3d, 2a + 3b + 2c + d ≤ 5): optimum −12
+KNAPSACK_MPS = """NAME          KNAP
+ROWS
+ N  COST
+ L  CAP
+COLUMNS
+    MARKER    'MARKER'      'INTORG'
+    A         COST         -5   CAP          2
+    B         COST         -7   CAP          3
+    C         COST         -4   CAP          2
+    D         COST         -3   CAP          1
+    MARKER    'MARKER'      'INTEND'
+RHS
+    RHS       CAP          5
+BOUNDS
+ UP BND       A            1
+ UP BND       B            1
+ UP BND       C            1
+ UP BND       D            1
+ENDATA
+"""
+
+
+@pytest.mark.parametrize("flags,fixture", [
+    (("--algorithm", "dual"), WIKI_MPS),
+    (("--algorithm", "dual", "--dual-pricing", "devex"), WIKI_MPS),
+    (("--algorithm", "dual", "--xl-engine", "lu"), WIKI_MPS),
+    (("--mip",), KNAPSACK_MPS),
+    (("--mip", "--mip-cuts", "0", "--mip-branch", "fractional"), KNAPSACK_MPS),
+], ids=["dual", "dual-devex", "dual-lu", "mip", "mip-plain"])
+def test_cli_new_flags_print_the_jax_cli_line(tmp_path, flags, fixture):
+    path = tmp_path / "problem.mps"
+    path.write_text(fixture)
+    port = _run("relp_tpu_torch", path, {"RELP_TPU_TORCH_DEVICE": "cpu"}, flags)
+    ref = _run("relp_tpu", path, {"RELP_TPU_PLATFORM": "cpu", "JAX_PLATFORMS": "cpu"}, flags)
+    assert port.returncode == ref.returncode == 0, port.stderr + ref.stderr
+    assert port.stdout.strip() == ref.stdout.strip()
+    assert port.stdout.startswith("objective ")
+
+
+def test_cli_mip_json_carries_the_search_counters(tmp_path, capsys):
+    import json
+
+    path = tmp_path / "knap.mps"
+    path.write_text(KNAPSACK_MPS)
+    os.environ["RELP_TPU_TORCH_DEVICE"] = "cpu"
+    try:
+        rc = cli.main(["--mip", "--json", "-q", str(path)])
+    finally:
+        del os.environ["RELP_TPU_TORCH_DEVICE"]
+    payload = json.loads(capsys.readouterr().out)
+    assert rc == 0 and payload["status"] == "finite_optimum"
+    assert {"nodes", "lp_iterations", "best_bound", "objective"} <= set(payload)
+
+
 def test_cli_refuses_flags_not_ported(tmp_path, capsys):
     path = tmp_path / "testprob.mps"
     path.write_text(WIKI_MPS)
-    for flags, said in ((["--algorithm", "dual"], "--algorithm dual is not ported"),
-                        (["--algorithm", "ipm"], "--algorithm ipm is not ported"),
+    for flags, said in ((["--algorithm", "ipm"], "--algorithm ipm is not ported"),
                         (["--algorithm", "pdlp", "--pdlp-matrix", "bricks"],
                          "--pdlp-matrix bricks is not ported"),
-                        (["--mip"], "--mip is not ported")):
+                        (["--ranging"], "--ranging is not ported")):
         with pytest.raises(SystemExit) as exc:
             cli.main([*flags, str(path)])
         assert exc.value.code == 2
@@ -162,12 +235,15 @@ def test_cuda_without_a_gpu_raises(tmp_path, monkeypatch):
 
 def test_config_refuses_engines_not_ported():
     assert SolverConfig(algorithm="pdlp").pdlp_matrix == "auto"
-    for field, value in (("algorithm", "dual"), ("algorithm", "ipm"),
-                         ("pdlp_matrix", "bricks"), ("mesh_cols", 2)):
+    assert SolverConfig(algorithm="dual").dual_ratio == "sort"  # the JAX default is "bisect"
+    for field, value in (("algorithm", "ipm"), ("pdlp_matrix", "bricks"), ("mesh_cols", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SolverConfig(**{field: value})
     with pytest.raises(ValueError):
         SolverConfig(pricing="steepest")
     with pytest.raises(ValueError):
         SolverConfig(inverse="lu")
+    for field in ("dual_pricing", "dual_ratio", "mip_branch", "xl_engine"):
+        with pytest.raises(ValueError):
+            SolverConfig(**{field: "nonsense"})
     assert SolverConfig().pricing == "devex" and SolverConfig().matrix_format == "auto"

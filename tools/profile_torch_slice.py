@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of relp_tpu_torch's iterations goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp] [--nodes 4096]
+    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual] [--nodes 4096]
                                          [--iters 600] [--out FILE]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
@@ -42,7 +42,6 @@ def _device_attr(avg) -> str:
 def profile_pdlp(args, smi) -> list[str]:
     """The PDHG rounds of the max-flow LP, each scheme in f32 and f64."""
     import numpy as np
-    import scipy.sparse as sp
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -58,17 +57,8 @@ def profile_pdlp(args, smi) -> list[str]:
     presolve(general)
     cf = build_computational_form(general, scale=True)
     config, dev = SolverConfig(algorithm="pdlp"), torch.device("cuda")
-    m_pad = driver._round_up(cf.m, config.row_align)
-    n_pad = driver._round_up(cf.n, config.col_align)
-
-    def padded(v, size):
-        out = np.zeros(size)
-        out[: len(v)] = v
-        return out
-
-    p = driver._Padded(cf=cf, config=config, dev=dev, m_pad=m_pad, n_pad=n_pad,
-                       b=padded(cf.b, m_pad), c=padded(cf.c, n_pad), lb=padded(cf.lb, n_pad),
-                       ub=padded(cf.ub, n_pad), A_csc=sp.csc_matrix(cf.A), max_iter=0)
+    p = driver._Padded.of(cf, config, dev)
+    m_pad, n_pad = p.m_pad, p.n_pad
     d_r, d_c, csc_s = driver._pdlp_scaling(p)
     with np.errstate(invalid="ignore"):
         lb_h = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
@@ -133,13 +123,122 @@ def profile_pdlp(args, smi) -> list[str]:
     return lines
 
 
+DUAL_OPTIONS = (dict(dual_ratio="bisect"), dict(dual_ratio="sort"),
+                dict(dual_ratio="sort", dual_pricing="devex"))
+
+
+def _dual_problem(nodes: int, dev):
+    """The max-flow LP padded, with the driver's dual start."""
+    import chip_smoke
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex import driver
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    general, _ = chip_smoke.slice_problem(nodes)
+    presolve(general)
+    cf = build_computational_form(general, scale=True)
+    p = driver._Padded.of(cf, SolverConfig(algorithm="dual", matrix_format="ell"), dev)
+    lb_d, ub_d, warm, _, _ = driver._dual_start(p)
+    return p, lb_d, ub_d, warm
+
+
+def count_dual_ops(args) -> list[str]:
+    """Tensor operations per dual iteration, counted on the CPU."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from relp_tpu_torch.simplex.dual import solve_core_dual
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    p, lb_d, ub_d, warm = _dual_problem(args.nodes, torch.device("cpu"))
+    lines = []
+    for opts in DUAL_OPTIONS:
+        Count.n = 0
+        with Count():
+            out = solve_core_dual(p.device_A()[0], p.b, p.c, lb_d, ub_d,
+                                  cfg=SolverConfig(algorithm="dual", **opts),
+                                  max_iter=args.iters, **warm)
+        lines.append(f"[ops] dual {opts} on the CPU, max-flow N={args.nodes} (padded {p.m_pad}x"
+                     f"{p.n_pad}): {int(out.it)} iterations, status {int(out.status)}, "
+                     f"{Count.n / max(int(out.it), 1):.1f} tensor operations per iteration, "
+                     f"host reads {out.host_reads}")
+    return lines
+
+
+def profile_dual(args, smi) -> list[str]:
+    """The dual simplex's loop on the max-flow LP, under each ratio test."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_spmv
+    from relp_tpu_torch.simplex.dual import solve_core_dual
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    p, lb_d, ub_d, warm = _dual_problem(args.nodes, torch.device("cuda"))
+    cf = p.cf
+    A, fmt = p.device_A()
+    lines = [f"[profile] dual simplex, max-flow N={args.nodes}: m={cf.m} n={cf.n} (padded "
+             f"{p.m_pad}x{p.n_pad}) format {fmt}, first {args.iters} iterations [{smi}]"]
+    for opts in DUAL_OPTIONS:
+        cfg = SolverConfig(algorithm="dual", **opts)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve_core_dual(A, p.b, p.c, lb_d, ub_d, cfg=cfg, max_iter=args.iters, **warm)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
+
+        run()
+        ell_price.launches = ell_spmv.launches = 0
+        wall, out = run()
+        counts = (ell_price.launches, ell_spmv.launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_wall, _ = run()
+        avgs = prof.key_averages()
+        attr = _device_attr(avgs[0])
+        kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+        busy_us = sum(getattr(a, attr) for a in kernels)
+        launches = sum(a.count for a in kernels)
+        its = max(int(out.it), 1)
+        lines.append(
+            f"[profile] dual {opts}: iterations {its} status {int(out.status)} flips "
+            f"{int(out.flips)}; wall {wall / its * 1e6:.1f} us/iter unprofiled "
+            f"({prof_wall / its * 1e6:.1f} profiled); kernel launches {launches / its:.1f}/iter; "
+            f"kernel time {busy_us / its:.1f} us/iter; device busy share "
+            f"{busy_us / 1e6 / prof_wall:.4f}; host reads {out.host_reads} "
+            f"({out.host_reads / its:.3f}/iter); ell_price {counts[0]} "
+            f"({counts[0] / its:.3f}/iter) ell_spmv {counts[1]} ({counts[1] / its:.3f}/iter)")
+        for a in sorted(kernels, key=lambda a: getattr(a, attr), reverse=True)[:8]:
+            lines.append(f"[profile]   kernel {getattr(a, attr) / its:8.2f} us/iter "
+                         f"{a.count / its:6.2f} launches/iter  {a.key[:90]}")
+        if args.out:
+            lines.append(avgs.table(sort_by="self_cpu_time_total", row_limit=25))
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp"), default="maxflow")
+    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp", "dual"), default="maxflow")
     ap.add_argument("--nodes", type=int, default=4096, help="size of the max-flow graph")
     ap.add_argument("--iters", type=int, default=600)
     ap.add_argument("--out", help="file for the full profiler tables")
+    ap.add_argument("--count-ops", action="store_true",
+                    help="with --problem dual: count tensor operations on the CPU instead")
     args = ap.parse_args(argv)
+    if args.count_ops:
+        sys.path.insert(0, str(ROOT))
+        print("\n".join(count_dual_ops(args)))
+        return 0
 
     import torch
     from torch.autograd import DeviceType
@@ -155,8 +254,8 @@ def main(argv=None) -> int:
     from relp_tpu_torch.utils.config import SolverConfig
 
     smi = chip_smoke.phase_device()
-    if args.problem == "pdlp":
-        lines = profile_pdlp(args, smi)
+    if args.problem in ("pdlp", "dual"):
+        lines = (profile_pdlp if args.problem == "pdlp" else profile_dual)(args, smi)
         shown = [line for line in lines if line.startswith("[profile]")]
         print("\n".join(shown))
         if args.out:
