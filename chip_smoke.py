@@ -79,7 +79,37 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              through ``solve_mip`` and through the command line's ``--mip``)
              against ``scipy.optimize.milp``, solved meanwhile by the second
              process.
-10. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
+10. analysis — sensitivity ranging of the dense LP at 256 × 512 (a seeded
+             sample of 8 cost and 8 rhs intervals, each finite end held against
+             re-solves from the optimal basis just inside, where the objective
+             must move along the reported slope, and just outside, where it
+             must leave that line only on the side the optimal value's shape
+             allows; costs by a warm primal, right-hand sides by
+             ``reoptimize_with_bounds``'s dual simplex); the primal vertex of the N = 1,024 max flow
+             certified optimal over ℚ (``certify_optimal_basis``, then
+             ``polish_to_certified``: exact pivots and seconds), its exact
+             objective equal to scipy's max flow; ``python -m relp_tpu_torch
+             --verify --ranging --json`` and ``--verify`` on a small MPS file,
+             exit 0.
+11. colgen — column generation on the dense operator: the cutting stock of
+             examples/column_range.py to its optimum (knapsack pricing) against
+             HiGHS on the full enumeration of its patterns, and the masked
+             64 × 10,000 pool of tests/test_lazy_pool_10k.py (priced over its
+             active columns, then grown 32 columns a round by reduced cost to
+             the optimum over every column) against HiGHS; rounds, iterations
+             and ``dense_price*`` launches, ``dense_price_select`` at least
+             once per iteration.  HiGHS runs in the second process.
+12. ipm    — the interior point (``algorithm="ipm"``) under
+             ``ipm_ladder="f64"`` and ``"mixed"``: the dense LP 768 × 1536
+             without crossover against HiGHS (1e-6 relative), with the share
+             of the wall in the normal-equation product and Cholesky (an
+             instrumented second solve), and at 256 × 512 with crossover
+             (1e-9; at 768 × 1536 the crossover's host push takes minutes,
+             which ``tools/profile_torch_slice.py --problem ipm --crossover``
+             measures); the max flow at N = 1,024 with crossover and at
+             N = 4,096 without (a 1 GiB dense operator), against scipy's max
+             flow.
+13. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
 
 Launch counts: every kernel's count is set to 0 just before each path that
 runs it (probe, slice, dense, pdlp) and read just after; launches made to
@@ -127,6 +157,13 @@ F32_TOL = 2e-5          # f32 sums run in another order (and fused) than the pla
 F64_TOL = 1e-12
 OBJ_REL = 1e-9
 MID_SOLVE_ITERS = 600   # where the select comparisons take their state
+ANALYSIS_SAMPLE = 8     # cost and rhs intervals of the dense LP held against re-solves
+CUT_WIDTH = 100.0       # examples/column_range.py's cutting stock
+CUT_SIZES = (45.0, 36.0, 31.0, 14.0)
+CUT_DEMAND = (97.0, 610.0, 395.0, 211.0)
+POOL_SHAPE = (64, 10_000)   # tests/test_lazy_pool_10k.py's masked pool
+POOL_BATCH = 32         # inactive columns activated per column-generation round
+IPM_NODES = 4096        # the interior point's largest max flow (dense operator, 1 GiB)
 # NVIDIA's H100 SXM data sheet: device memory rate, and the float32 / float64
 # rates outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1135,6 +1172,377 @@ def phase_dual(smi, launches, highs, milp_ref):
                out["lp_iterations"], wall, milp_ref[KNAPSACK_SMALL], smi)
 
 
+def _cutting_stock(width, sizes):
+    """Every cutting pattern (a column of piece counts) that fits ``width``."""
+    import itertools
+
+    import numpy as np
+
+    out = []
+    for combo in itertools.product(*[range(int(width // size) + 1) for size in sizes]):
+        a = np.array(combo, dtype=float)
+        if a.sum() > 0 and a @ sizes <= width:
+            out.append(a)
+    return np.stack(out, axis=1)
+
+
+def masked_pool_data(m=POOL_SHAPE[0], n_pool=POOL_SHAPE[1], active_every=7, seed=3):
+    """A covering-style LP over a large virtual pool of which every
+    ``active_every``-th column is active (tests/test_lazy_pool_10k.py's
+    ``build_pool``, drawn in the same order)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    A = np.where(rng.random((m, n_pool)) < 0.05, rng.random((m, n_pool)), 0.0)
+    A[np.arange(m), rng.integers(0, n_pool, m)] = 1.0
+    active = np.zeros(n_pool, dtype=bool)
+    active[::active_every] = True
+    b = A[:, active] @ rng.random(int(active.sum()))  # feasible w.r.t. the active set
+    c = rng.random(n_pool) + 0.1
+    return A, b, c, active
+
+
+def _colgen_reference():
+    """HiGHS on the full cutting-stock enumeration and on the masked pool
+    (its active columns, and all of them): the optimal objectives."""
+    import numpy as np
+    from scipy.optimize import linprog
+
+    patterns = _cutting_stock(CUT_WIDTH, np.array(CUT_SIZES))
+    full = linprog(np.ones(patterns.shape[1]), A_ub=-patterns, b_ub=-np.array(CUT_DEMAND),
+                   bounds=(0, None), method="highs")
+    A, b, c, active = masked_pool_data()
+    act = linprog(c[active], A_eq=A[:, active], b_eq=b, bounds=(0, None), method="highs")
+    every = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
+    for name, ref in (("cutting stock", full), ("pool active", act), ("pool all", every)):
+        if ref.status != 0:
+            raise AssertionError(f"HiGHS did not solve the {name} LP: {ref.message}")
+    return {"cutting stock": float(full.fun), "pool active": float(act.fun),
+            "pool all": float(every.fun), "patterns": patterns.shape[1]}
+
+
+def phase_analysis(smi):
+    """Ranging, the exact certificate and the CLI's --verify/--ranging on the card."""
+    import copy
+    from fractions import Fraction
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from relp_tpu_torch import api
+    from relp_tpu_torch.model.elements import LinearProgramType
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.numerics.exact import certify_optimal_basis, polish_to_certified
+    from relp_tpu_torch.simplex import driver
+    from relp_tpu_torch.simplex import status as st
+    from relp_tpu_torch.simplex.driver import solve_computational_form
+    from relp_tpu_torch.simplex.reoptimize import reoptimize_with_bounds
+    from relp_tpu_torch.utils.config import DEFAULT_CONFIG
+
+    # 1. ranging (api.ranging_of) of the dense LP at 256 × 512 solved through
+    # api.solve, a seeded sample of its intervals held against warm re-solves
+    # just inside and just outside each finite end: inside, the objective moves linearly with the slope the
+    # ranging reports (a range reported too wide fails here); outside, the
+    # objective leaves the line on the side the optimal value's shape allows
+    # (a minimum is concave in a cost: at or below the line; convex in a
+    # right-hand side: at or above it), as the JAX package's tight-edge test
+    m, n = OPTIONS_SHAPE
+    solved, solve_s = _solve_file(dense_lp(m, n), f"dense_{m}x{n}")
+    _check_optimal("analysis", solved, "dense")
+    t0 = time.perf_counter()
+    rng_ = api.ranging_of(solved)
+    range_s = time.perf_counter() - t0
+    cf, res = solved.cf, solved.simplex
+    warm = (res.basis, res.vstat[: res.metrics.n_padded])
+
+    # a cost change keeps the basis primal feasible: a warm primal re-solve
+    # (a few pivots); an rhs change keeps it dual feasible: the dual simplex
+    # from it (reoptimize_with_bounds), as a user re-solving would
+    padded = driver._Padded.of(cf, DEFAULT_CONFIG, torch.device("cuda"))
+    prior = SimpleNamespace(**{k: torch.as_tensor(getattr(res, k), device=padded.dev)
+                               for k in ("basis", "vstat", "art_sign")})
+
+    def resolve(dc=None, db=None):
+        """(objective in the problem's units, iterations) after the change."""
+        if dc:
+            cf2 = copy.deepcopy(cf)
+            for j, delta in dc.items():
+                cf2.c[j] += cf2.col_scale[j] * delta   # a minimization: sigma = 1
+                cf2._orig_cost[j] += delta
+            out = solve_computational_form(cf2, DEFAULT_CONFIG, warm_start_builder=lambda *_: warm)
+            if out.kind is not LinearProgramType.FINITE_OPTIMUM:
+                raise AssertionError(f"[analysis] re-solve {dc}: {out.kind}")
+            return out.objective, out.iterations
+        b2 = padded.b.copy()
+        for i, delta in db.items():
+            b2[i] += cf.row_scale[i] * delta
+        out = reoptimize_with_bounds(padded.device_A()[0], b2, padded.c, padded.lb, padded.ub,
+                                     prior, DEFAULT_CONFIG, padded.max_iter)
+        if int(out.status) != st.OPTIMAL:
+            raise AssertionError(f"[analysis] re-solve {db}: status {int(out.status)}")
+        return cf.objective_of(out.x[: cf.n].cpu().numpy()), int(out.it)
+
+    sample = np.random.default_rng(SEED)
+    checked = {"cost": 0, "rhs": 0}
+    left = {"cost": 0, "rhs": 0}   # outside ends where the objective left the line
+    its = []
+    t0 = time.perf_counter()
+    for part, rows in (("cost", rng_.cost), ("rhs", rng_.rhs)):
+        finite = [k for k, r in enumerate(rows)
+                  if (np.isfinite(r.lo) or np.isfinite(r.hi)) and getattr(r, "computed", True)]
+        for k in sample.choice(finite, min(ANALYSIS_SAMPLE, len(finite)), replace=False):
+            r = rows[k]
+            cur, slope = (r.cost, r.value) if part == "cost" else (r.rhs, r.dual)
+            for end in (r.lo, r.hi):
+                if not np.isfinite(end):
+                    continue
+                width = abs(end - cur)
+                side = 1.0 if end >= cur else -1.0
+                for where, delta in (("inside", (end - cur) - side * 1e-4 * width),
+                                     ("outside", (end - cur) + side * 1e-2 * max(width, 1.0))):
+                    j = cf.col_names.index(r.name) if part == "cost" else k
+                    obj, it = resolve(dc={j: delta}) if part == "cost" else resolve(db={j: delta})
+                    its.append(it)
+                    line = res.objective + delta * slope
+                    tol = 1e-7 * max(1.0, abs(line))
+                    if where == "inside" and abs(obj - line) > tol:
+                        raise AssertionError(f"[analysis] {part} {r.name} end {end!r}: inside, "
+                                             f"objective {obj!r} off the line {line!r}")
+                    if where == "outside":
+                        off = (obj - line) * (1.0 if part == "cost" else -1.0)
+                        if off > tol:
+                            raise AssertionError(
+                                f"[analysis] {part} {r.name} end {end!r}: outside, objective "
+                                f"{obj!r} on the wrong side of the line {line!r}")
+                        left[part] += off < -tol
+                checked[part] += 1
+    check_s = time.perf_counter() - t0
+    print(f"[analysis] ranging dense {m}x{n}: api.solve {solve_s:.3f} s ({res.iterations} "
+          f"iterations), api.ranging_of {range_s:.3f} s for {len(rng_.cost)} costs and "
+          f"{len(rng_.rhs)} rhs; finite ends held against warm re-solves: cost {checked['cost']} "
+          f"(beyond the end off the line {left['cost']}), rhs {checked['rhs']} "
+          f"({left['rhs']}), {len(its)} re-solves, {sum(its)} iterations, {check_s:.3f} s "
+          f"[{smi}]")
+    if min(checked.values()) < ANALYSIS_SAMPLE:
+        raise AssertionError(f"[analysis] only {checked} finite ends checked")
+
+    # 2. the vertex of the N = 1,024 max flow certified over Q
+    general, flow = slice_problem(OPTIONS_NODES)
+    res, wall = _solve_file(general, f"maxflow_{OPTIONS_NODES}")
+    _check_optimal("analysis", res, "ell")
+    t0 = time.perf_counter()
+    cert = certify_optimal_basis(res.cf, res.simplex)
+    cert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    polished, pivots = polish_to_certified(res.cf, res.simplex)
+    polish_s = time.perf_counter() - t0
+    if not polished.ok() or polished.objective != Fraction(int(flow)) or flow != int(flow):
+        raise AssertionError(f"[analysis] certificate of the max flow: ok={polished.ok()} "
+                             f"objective {polished.objective} scipy {flow!r}")
+    print(f"[analysis] max-flow N={OPTIONS_NODES}: basis of the primal solve ({res.simplex.iterations} "
+          f"iterations, {wall:.3f} s) certified {'OPTIMAL' if cert.ok() else 'NOT YET'} over Q "
+          f"in {cert_s:.3f} s; polish_to_certified {pivots} exact pivots {polish_s:.3f} s -> "
+          f"OPTIMAL, objective {polished.objective} == scipy {flow:.12g} [{smi}]")
+
+    # 3. the command line: --verify --ranging --json, then --verify alone
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "testprob.mps")
+        Path(path).write_text(WIKI_MPS)
+        env = dict(os.environ, RELP_TPU_TORCH_DEVICE="cuda", PYTHONPATH=str(ROOT))
+        for flags in (["--verify", "--ranging", "--json"], ["--verify", "-q"]):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "relp_tpu_torch", *flags, path],
+                                 capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+            wall = time.perf_counter() - t0
+            if run.returncode != 0:
+                raise AssertionError(f"[analysis] {flags}: exit {run.returncode}\n{run.stderr}")
+            if "--json" in flags:
+                out = json.loads(run.stdout)
+                if out["objective"] != -8.0 or not out["ranging"]["rhs"]:
+                    raise AssertionError(f"[analysis] {flags}: {out}")
+                said = f"objective {out['objective']} ranging of {len(out['ranging']['cost'])} " \
+                       f"costs and {len(out['ranging']['rhs'])} rows"
+            else:
+                said = " / ".join(line for line in run.stderr.splitlines()
+                                  if line.startswith("exact"))
+                if "exact check: OK" not in said or "certificate: OPTIMAL" not in said:
+                    raise AssertionError(f"[analysis] {flags}: {run.stderr}")
+            print(f"[analysis] python -m relp_tpu_torch {' '.join(flags)} testprob.mps: exit 0, "
+                  f"{said} ({wall:.1f} s with start-up)")
+    torch.cuda.empty_cache()
+
+
+def phase_colgen(smi, colgen_ref):
+    """Column generation on the card: the cutting stock of
+    examples/column_range.py to its proven optimum, and the masked
+    10,000-column pool, each against HiGHS."""
+    import numpy as np
+    import torch
+
+    from relp_tpu_torch.providers import ColumnPool, solve_with_column_generation
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    ref = colgen_ref.result()
+    cfg = SolverConfig(scale=False)
+    names = ("dense_price", "dense_price_select")
+    sizes, demand = np.array(CUT_SIZES), np.array(CUT_DEMAND)
+
+    def knapsack(pi, pool):
+        patterns = _cutting_stock(CUT_WIDTH, sizes)
+        values = pi @ patterns
+        best = int(np.argmax(values))
+        if values[best] <= 1.0 + 1e-7:
+            return None  # priced out, as the example's pricing decides
+        return patterns[:, [best]], [1.0], [0.0], [np.inf], None
+
+    def run(tag, pool, generator, want, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted(names, {}, path):
+            res = solve_with_column_generation(pool, generator, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if res.kind.value != "finite_optimum" or abs(res.objective - want) > OBJ_REL * abs(want):
+            raise AssertionError(f"[colgen] {tag}: {res.kind} objective {res.objective!r}, "
+                                 f"HiGHS {want!r}")
+        counts = PATHS[path]
+        if counts["dense_price_select"] < res.total_iterations or \
+                counts["dense_price"] < res.rounds:
+            raise AssertionError(f"[colgen] {tag}: launches {counts} for "
+                                 f"{res.total_iterations} iterations in {res.rounds} rounds")
+        its = max(res.total_iterations, 1)
+        print(f"[colgen] {tag}: objective {res.objective:.12g} == HiGHS {want:.12g} rounds "
+              f"{res.rounds} iterations {res.total_iterations} pool {res.pool.nr_columns} columns "
+              f"wall {wall:.3f} s launches "
+              + " ".join(f"{k} {v} ({v / its:.3f}/iter)" for k, v in counts.items())
+              + f" [{smi}]")
+        return res
+
+    # 1. the cutting stock, single-size patterns first, knapsack pricing
+    m = len(demand)
+    init = np.diag((CUT_WIDTH // sizes).astype(float))
+    pool = ColumnPool(A=np.concatenate([init, -np.eye(m)], axis=1), b=demand.astype(float),
+                      c=np.concatenate([np.ones(m), np.zeros(m)]), lb=np.zeros(2 * m),
+                      ub=np.full(2 * m, np.inf),
+                      names=[f"p{j}" for j in range(m)] + [f"s{i}" for i in range(m)])
+    res = run(f"cutting stock width {CUT_WIDTH:g} (of {ref['patterns']} patterns)", pool,
+              knapsack, ref["cutting stock"], "colgen")
+    if res.rounds < 2:
+        raise AssertionError("[colgen] the cutting stock generated no column")
+
+    # 2. the masked pool: priced over the active columns, then grown by the
+    # most negative reduced costs of the inactive ones until none is left
+    A, b, c, active = masked_pool_data()
+    pool = ColumnPool(A=A, b=b, c=c, lb=np.zeros(A.shape[1]), ub=np.full(A.shape[1], np.inf),
+                      names=[f"v{j}" for j in range(A.shape[1])], active=active)
+    res = run(f"masked pool {A.shape[0]}x{A.shape[1]} (every 7th active)", pool,
+              lambda pi, pool: None, ref["pool active"], "colgen pool")
+    if np.any(res.x[~active] != 0.0):
+        raise AssertionError("[colgen] an inactive column entered")
+    inactive = np.flatnonzero(~active)
+
+    def activate(pi, pool):
+        d = c[inactive] - pi @ A[:, inactive]
+        take = inactive[np.argsort(d)[:POOL_BATCH]]
+        take = take[(c[take] - pi @ A[:, take]) < -1e-9]
+        if not len(take):
+            return None
+        return A[:, take], c[take], np.zeros(len(take)), np.full(len(take), np.inf), \
+            [f"v{j}+" for j in take]
+
+    run(f"masked pool, {POOL_BATCH} inactive columns a round by reduced cost", pool, activate,
+        ref["pool all"], "colgen grow")
+    torch.cuda.empty_cache()
+
+
+def phase_ipm(smi, highs, highs_small):
+    """The interior point on the card: the dense LP with and without
+    crossover under both ladders, and the max flows."""
+    import torch
+
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.simplex import primal_dual
+    from relp_tpu_torch.simplex.driver import solve_computational_form
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    factor = primal_dual._factor
+    spent = [0.0, 0]
+
+    def timed_factor(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = factor(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    def solve(tag, general, name, want, rel, fmt, share=False, **kw):
+        """One algorithm="ipm" solve through ``api.solve``; with ``share`` a
+        second, instrumented solve of its computational form times the
+        normal-equation product and Cholesky (``_factor``)."""
+        torch.cuda.reset_peak_memory_stats()
+        config = SolverConfig(algorithm="ipm", **kw)
+        res, wall = _solve_file(general, name, config)
+        obj = _check_optimal("ipm", res, fmt)
+        met = res.simplex.metrics
+        crossover = kw.get("pdlp_crossover", True)
+        engine = "ipm+crossover" if crossover else "ipm"
+        if met.engine != engine or abs(obj - want) > rel * abs(want):
+            raise AssertionError(f"[ipm] {tag}: engine {met.engine!r} objective {obj!r}, "
+                                 f"expected {engine!r} and {want!r}")
+        extra = ""
+        if share:
+            spent[:] = [0.0, 0]
+            primal_dual._factor = timed_factor
+            try:
+                res2 = solve_computational_form(res.cf, config)
+            finally:
+                primal_dual._factor = factor
+            extra = (f"; instrumented run {res2.metrics.wall_s:.3f} s of which _factor "
+                     f"(A·D·Aᵀ + Cholesky) {spent[0]:.3f} s in {spent[1]} calls, share "
+                     f"{spent[0] / res2.metrics.wall_s:.3f}")
+        print(f"[ipm] {tag}: engine {met.engine} ladder {met.ipm_ladder} interior-point "
+              f"iterations {met.fo_iterations} (all {met.iterations}) KKT {met.fo_kkt:.2e} "
+              f"objective {obj:.15g} ref {want:.15g} rel {abs(obj - want) / abs(want):.2e} "
+              f"solve_wall {met.wall_s:.3f} s ({met.wall_s / max(met.fo_iterations, 1) * 1e3:.2f}"
+              f" ms per interior-point iteration, crossover included) api_wall {wall:.3f} s "
+              f"host_reads {met.host_reads} peak_mem "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB{extra} [{smi}]")
+        return met
+
+    # 1. the dense LP at its documented size, both ladders, without crossover;
+    # with it at 256 × 512: the crossover's host push refactorizes the dense
+    # basis ~180 times at 768 × 1536 (~1.3 s each, ~4 min; PERF.md,
+    # tools/profile_torch_slice.py --problem ipm --crossover)
+    m, n = DENSE_SHAPE
+    want = highs.result()
+    for ladder in ("f64", "mixed"):
+        solve(f"dense LP {m}x{n} {ladder} without crossover", dense_lp(m, n), f"dense_{m}x{n}",
+              want, 1e-6, "dense", share=True, pdlp_crossover=False, ipm_ladder=ladder)
+    m, n = OPTIONS_SHAPE
+    want = highs_small.result()
+    for ladder in ("f64", "mixed"):
+        solve(f"dense LP {m}x{n} {ladder} with crossover", dense_lp(m, n), f"dense_{m}x{n}",
+              want, OBJ_REL, "dense", ipm_ladder=ladder)
+
+    # 2. the max flow at N = 1,024 with crossover, against scipy's max flow
+    general, flow = slice_problem(OPTIONS_NODES)
+    for ladder in ("f64", "mixed"):
+        solve(f"max-flow N={OPTIONS_NODES} {ladder} with crossover", general,
+              f"maxflow_{OPTIONS_NODES}", flow, OBJ_REL, "ell", ipm_ladder=ladder)
+
+    # 3. the max flow at N = 4,096 without crossover: a 4,096 × 32,768 f64
+    # operator (1 GiB) in every normal-equation product
+    general, flow = slice_problem(IPM_NODES)
+    for ladder in ("f64", "mixed"):
+        solve(f"max-flow N={IPM_NODES} {ladder} without crossover", general,
+              f"maxflow_{IPM_NODES}", flow, 1e-6, "dense", share=ladder == "f64",
+              pdlp_crossover=False, ipm_ladder=ladder)
+    torch.cuda.empty_cache()
+
+
 def phase_cli():
     from relp_tpu_torch import cli
 
@@ -1163,13 +1571,17 @@ def main() -> int:
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
     highs = pool.submit(_highs_objective, *DENSE_SHAPE)
     milp_ref = pool.submit(_milp_reference, (KNAPSACK_SMALL, KNAPSACK_WIDE))
+    colgen_ref = pool.submit(_colgen_reference)
+    highs_small = pool.submit(_highs_objective, *OPTIONS_SHAPE)
     pool.shutdown(wait=False)
     for phase in (phase_build, lambda: phase_probe(launches),
                   lambda: timings.update(phase_kernels(smi)),
                   lambda: phase_slice(smi, launches),
                   lambda: phase_dense(smi, launches, highs),
                   lambda: phase_options(smi), lambda: phase_pdlp(smi, launches),
-                  lambda: phase_dual(smi, launches, highs, milp_ref), phase_cli):
+                  lambda: phase_dual(smi, launches, highs, milp_ref),
+                  lambda: phase_analysis(smi), lambda: phase_colgen(smi, colgen_ref),
+                  lambda: phase_ipm(smi, highs, highs_small), phase_cli):
         t0 = time.perf_counter()
         phase()
         print(f"[time] {time.perf_counter() - t0:.1f} s", flush=True)

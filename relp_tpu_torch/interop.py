@@ -7,7 +7,10 @@ warm-start arguments, a JAX ``SolveOutput`` becomes this package's (and back),
 so a prior solve of one package warm-starts ``reoptimize_with_bounds`` of the
 other, a JAX dual ``DState`` becomes this package's, and a JAX ``PdhgState``
 becomes this package's (and back), so both packages' ``solve_pdhg_chunk`` can
-start from one state.
+start from one state; so does an ``IpmState`` for the interior point's
+functions, and a solve's computational form and basis (``SimplexResult``)
+go both ways as plain fields, so both packages' ranging and exact
+certificate can read one basis.
 Nothing here imports JAX; callers pass
 ``np.asarray(...)`` of the JAX arrays.  Every array is copied: a JAX
 array's buffer is read-only, and the port updates some of these tensors in
@@ -22,10 +25,17 @@ import dataclasses
 import numpy as np
 import torch
 
+import scipy.sparse as sp
+
 from relp_tpu_torch.fom.pdhg import PdhgState
+from relp_tpu_torch.model.computational_form import ComputationalForm
+from relp_tpu_torch.model.elements import LinearProgramType
 from relp_tpu_torch.ops.amatrix import DenseMatrix, EllMatrix
 from relp_tpu_torch.simplex.core import SolveOutput
+from relp_tpu_torch.simplex.driver import SimplexResult
 from relp_tpu_torch.simplex.dual import DState
+from relp_tpu_torch.simplex.primal_dual import IpmState
+from relp_tpu_torch.utils.metrics import SolveMetrics
 from relp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -129,3 +139,73 @@ def dstate_from_numpy(fields, *, device: DeviceLike) -> DState:
     ``DState`` as numpy arrays (a mapping, or the fields in order)."""
     names = [f.name for f in dataclasses.fields(DState)]
     return DState(**_copied(fields, names, resolve_device(device)))
+
+
+def ipm_state_from_numpy(fields, *, device: DeviceLike) -> IpmState:
+    """This package's ``IpmState`` on ``device`` from the fields of a JAX
+    ``IpmState`` as numpy arrays (a mapping, or ``x, y, zl, zu`` in order)."""
+    fields = _by_name(fields, IpmState._fields)
+    dev = resolve_device(device)
+    return IpmState(*(torch.tensor(np.asarray(fields[k], np.float64), device=dev)
+                      for k in IpmState._fields))
+
+
+def ipm_state_to_numpy(state: IpmState) -> dict:
+    """The fields of an ``IpmState`` as numpy arrays (copies, on the host)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in state._asdict().items()}
+
+
+_CF_FIELDS = ("b", "c", "lb", "ub", "n_structural", "slack_rows", "col_names", "maximize",
+              "fixed_cost", "row_scale", "col_scale", "_orig_cost")
+
+
+def computational_form_to_numpy(cf) -> dict:
+    """A computational form's fields as plain values (copies; ``A`` as a
+    scipy CSC): what either package's ``ComputationalForm`` is built from
+    (``_orig_cost`` is set after construction)."""
+    out = {"A": sp.csc_matrix(cf.A, copy=True)}
+    for name in _CF_FIELDS:
+        v = getattr(cf, name)
+        out[name] = v.copy() if isinstance(v, (np.ndarray, list)) else v
+    return out
+
+
+def computational_form_from_numpy(fields) -> ComputationalForm:
+    """This package's ``ComputationalForm`` from ``computational_form_to_numpy``
+    of either package's (every array copied)."""
+    kw = {k: (v.copy() if isinstance(v, (np.ndarray, list)) else v)
+          for k, v in fields.items() if k != "_orig_cost"}
+    kw["A"] = sp.csc_matrix(fields["A"], copy=True)
+    cf = ComputationalForm(**kw)
+    cf._orig_cost = np.array(fields["_orig_cost"], np.float64)
+    return cf
+
+
+def simplex_result_to_numpy(res) -> dict:
+    """The basis state of either package's ``SimplexResult``, as what the
+    other's ranging and certificate read: the status's value, the objective,
+    the padded basis, statuses and artificial signs (copies; ``None`` where
+    the solve has none) and the padded column count."""
+    def copy(v):
+        return None if v is None else np.array(v)
+
+    return {
+        "kind": res.kind.value, "objective": res.objective,
+        "basis": copy(res.basis), "vstat": copy(res.vstat), "art_sign": copy(res.art_sign),
+        "duals": copy(res.duals), "x_structural": copy(res.x_structural),
+        "n_padded": res.metrics.n_padded if res.metrics is not None else None,
+    }
+
+
+def simplex_result_from_numpy(fields) -> SimplexResult:
+    """This package's ``SimplexResult`` from ``simplex_result_to_numpy`` of
+    either package's (its metrics carry only the padded column count)."""
+    metrics = (None if fields["n_padded"] is None
+               else SolveMetrics(n_padded=int(fields["n_padded"])))
+    return SimplexResult(
+        kind=LinearProgramType(fields["kind"]), objective=fields["objective"],
+        x_structural=fields["x_structural"], duals=fields["duals"], metrics=metrics,
+        basis=None if fields["basis"] is None else np.asarray(fields["basis"], np.int32),
+        vstat=None if fields["vstat"] is None else np.asarray(fields["vstat"], np.int32),
+        art_sign=fields["art_sign"],
+    )

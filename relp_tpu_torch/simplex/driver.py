@@ -18,12 +18,14 @@ and hands to the primal when the dual cannot certify optimality.
 ``algorithm="pdlp"`` routes through the first-order engine first
 (``_run_pdlp`` over fom/pdhg.py: host scaling, the operator of the scaled
 matrix, the mixed-precision stage with its refinement zooms, the variant
-cascade, plateau acceptance) and then, under ``pdlp_crossover``, through
-``_crossover`` (basis guess, push and dual cleanup on the host LU of
-simplex/lu_host.py, one warm-started certifying ``solve_core`` call).  When
-the first-order engine cannot certify optimality the primal solves from
-scratch, as in the JAX package; ``SolveMetrics.engine`` names the engine
-whose answer is returned.
+cascade, plateau acceptance), ``algorithm="ipm"`` through the interior point
+(``_run_ipm`` over simplex/primal_dual.py: the same Ruiz scaling, the dense
+scaled operator, Mehrotra iterations); either then goes, under
+``pdlp_crossover``, through ``_crossover`` (basis guess, push and dual
+cleanup on the host LU of simplex/lu_host.py, one warm-started certifying
+``solve_core`` call).  When the engine cannot certify optimality the primal
+solves from scratch, as in the JAX package; ``SolveMetrics.engine`` names the
+engine whose answer is returned.
 """
 
 from __future__ import annotations
@@ -224,12 +226,9 @@ class _Padded:
         return out
 
 
-def _pdlp_scaling(p: _Padded):
-    """Ruiz ∞-norm equilibration (10 passes) and, under ``pdlp_scale=
-    "ruiz+pc"``, one Pock–Chambolle (α = 1) pass on top, on the host.
-    First-order convergence is driven by A's conditioning far more than the
-    simplex is.  The solve runs in x = D_c x', y = D_r y' space; returns
-    ``(d_r[m_pad], d_c[n_pad], D_r·A·D_c)``."""
+def _ruiz(p: _Padded):
+    """Ruiz ∞-norm equilibration, 10 passes, on the host: returns
+    ``(d_r[m_pad], d_c[n_pad], |D_r·A·D_c|)``."""
     cf = p.cf
     d_r = np.ones(p.m_pad)
     d_c = np.ones(p.n_pad)
@@ -243,6 +242,17 @@ def _pdlp_scaling(p: _Padded):
         S = S @ sp.diags(cs)
         d_r[: cf.m] *= rs
         d_c[: cf.n] *= cs
+    return d_r, d_c, S
+
+
+def _pdlp_scaling(p: _Padded):
+    """Ruiz ∞-norm equilibration (``_ruiz``) and, under ``pdlp_scale=
+    "ruiz+pc"``, one Pock–Chambolle (α = 1) pass on top, on the host.
+    First-order convergence is driven by A's conditioning far more than the
+    simplex is.  The solve runs in x = D_c x', y = D_r y' space; returns
+    ``(d_r[m_pad], d_c[n_pad], D_r·A·D_c)``."""
+    cf = p.cf
+    d_r, d_c, S = _ruiz(p)
     if p.config.pdlp_scale == "ruiz+pc":
         r1 = np.asarray(abs(S).sum(axis=1)).ravel()
         rs = 1.0 / np.sqrt(np.where(r1 > 0, r1, 1.0))
@@ -586,6 +596,63 @@ def _run_pdlp(p: _Padded, fo: dict):
     )
 
 
+def _run_ipm(p: _Padded, fo: dict):
+    """Primal-dual interior point (``config.algorithm="ipm"``,
+    simplex/primal_dual.py): Mehrotra predictor-corrector over the dense
+    scaled operator, one normal-equation product and one Cholesky per
+    iteration.  The same Ruiz equilibration as the first-order engine (the
+    Cholesky's conditioning rides on an O(1)-equilibrated A, no
+    Pock–Chambolle pass).  Returns the same namespace as ``_run_pdlp``
+    (``vertex=False``: the crossover recovers the vertex), else None."""
+    from types import SimpleNamespace
+
+    from relp_tpu_torch.simplex.primal_dual import solve_ipm
+    from relp_tpu_torch.utils.metrics import logger as _log
+
+    config, cf, m_pad, n_pad = p.config, p.cf, p.m_pad, p.n_pad
+    d_r, d_c, _ = _ruiz(p)
+    coo = (sp.diags(d_r[: cf.m]) @ p.A_csc @ sp.diags(d_c[: cf.n])).tocoo()
+    coo.sum_duplicates()
+    # the dense scaled operator, written on the device from the nonzeros
+    A_dense = torch.zeros((m_pad, n_pad), dtype=torch.float64, device=p.dev)
+    A_dense[torch.as_tensor(coo.row, device=p.dev).long(),
+            torch.as_tensor(coo.col, device=p.dev).long()] = torch.as_tensor(
+                coo.data, dtype=torch.float64, device=p.dev)
+    with np.errstate(invalid="ignore"):
+        lb_s = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
+        ub_s = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
+    fo["matrix_format"] = "dense"
+    res = solve_ipm(A_dense, p.b * d_r, p.c * d_c, lb_s, ub_s, tol=config.ipm_tol,
+                    accept=config.ipm_accept, max_iter=config.ipm_max_iter,
+                    ladder=config.ipm_ladder, log=_log)
+    del A_dense
+    if res is None:
+        return None
+    x_s, y_s, info = res
+    p.iterations += info.iterations
+    p.host_reads += info.host_reads
+    fo.update(iterations=info.iterations, kkt=float(info.kkt), ladder=info.ladder)
+    _log.info("ipm done it=%d kkt=%.3e converged=%s ladder=%s", info.iterations, info.kkt,
+              info.converged, info.ladder)
+    x_np = d_c * x_s
+    r = p.b.copy()
+    r[: cf.m] -= np.asarray(p.A_csc @ x_np[: cf.n])
+    return SimpleNamespace(
+        x=x_np,
+        status=st.OPTIMAL,
+        it=info.iterations,
+        phase=2,
+        basis=n_pad + np.arange(m_pad, dtype=np.int32),
+        vstat=np.full(n_pad + m_pad, st.NB_LOWER, np.int32),
+        art_inf=float(np.max(np.abs(r))),
+        pi=d_r * y_s,
+        obj=float(p.c @ x_np),
+        art_sign=np.ones(m_pad),
+        viol=float(info.kkt),
+        vertex=False,  # an interior point: basis and vstat are placeholders
+    )
+
+
 def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None):
     """Host sparse-LU dual simplex (simplex/lu_host.py).  ``repair=True``
     first places every nonbasic on the bound matching sign(d_j) at the given
@@ -902,13 +969,15 @@ def solve_computational_form(
     with Timer() as t:
         outs = []
         out = None
-        if config.algorithm == "pdlp" and warm_start_builder is None and config.perturb == 0:
-            out = _run_pdlp(p, fo)  # None: fall back to the primal below
-            engine = "pdlp" if out is not None else "pdlp→primal"
+        algo = config.algorithm
+        if algo in ("pdlp", "ipm") and warm_start_builder is None and config.perturb == 0:
+            # None: fall back to the primal below
+            out = _run_pdlp(p, fo) if algo == "pdlp" else _run_ipm(p, fo)
+            engine = algo if out is not None else f"{algo}→primal"
             if out is not None and config.pdlp_crossover:
                 vertex = _crossover(p, out, fo)
                 if vertex is not None:
-                    out, engine = vertex, "pdlp+crossover"
+                    out, engine = vertex, f"{algo}+crossover"
         if config.algorithm == "dual" and warm_start_builder is None and config.perturb == 0:
             out = _run_dual(p, fo)  # None: fall back to the primal below
             engine = fo["engine"] if out is not None else "dual→primal"
@@ -941,6 +1010,7 @@ def solve_computational_form(
         fo_rounds=fo.get("rounds", 0), fo_round_reads=fo.get("round_reads", 0),
         fo_refines=fo.get("refines", 0),
         fo_kkt=fo.get("kkt", 0.0), push_pivots=fo.get("push_pivots", 0),
+        ipm_ladder=fo.get("ladder", ""),
     )
     trace = None
     if config.trace_iters:

@@ -4,10 +4,10 @@ Field names and defaults are those of ``relp_tpu.utils.config.SolverConfig``
 for every field this package honours, so a config reads the same in both
 packages.  Fields that existed only for the TPU (``device_chunk_iters``,
 ``refactor_external_m``, ``newton_refactor``, ``bucket_shapes``) are gone;
-fields of engines not yet ported raise ``NotImplementedError`` when set to
-a value this package does not run (``algorithm="ipm"``,
-``pdlp_matrix="bricks"``, ``mesh_cols`` other than 1), naming the ROADMAP.md
-entry that will port them.
+fields of parts not yet ported raise ``NotImplementedError`` when set to a
+value this package does not run (``pdlp_matrix="bricks"``, ``mesh_cols``
+other than 1), naming the ROADMAP.md entry that will port them.  Every
+choice field is validated: an unknown value is a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -16,17 +16,16 @@ import dataclasses
 
 # field -> (values this package runs, ROADMAP.md entry that ports the rest)
 _UNPORTED = {
-    "algorithm": (("primal", "dual", "pdlp"), "queue 1, IPM (item 8)"),
     "mesh_cols": ((1,), "queue 1, multi-device"),
     "pdlp_matrix": (("auto", "ell"), "queue 1 item 9, ops/bricks.py"),
 }
 # values the JAX package accepts for those fields: anything else is a ValueError
 _KNOWN = {
-    "algorithm": ("primal", "dual", "pdlp", "ipm"),
     "pdlp_matrix": ("auto", "ell", "bricks"),
 }
 
 _CHOICES = {
+    "algorithm": ("primal", "dual", "pdlp", "ipm"),
     "inverse": ("dense", "eta"),
     "refactor_mode": ("polish", "full"),
     "pricing": ("devex", "dantzig", "bland"),
@@ -38,6 +37,7 @@ _CHOICES = {
     "dual_ratio": ("bisect", "sort"),
     "mip_branch": ("pseudo", "fractional"),
     "xl_engine": ("auto", "lu", "dense", "primal"),
+    "ipm_ladder": ("auto", "mixed", "f64"),
 }
 
 
@@ -95,7 +95,11 @@ class SolverConfig:
     # falls back to the primal when it cannot certify optimality; "pdlp": the first-order
     # restarted-PDHG engine (fom/pdhg.py) — two sparse products and vector
     # work per iteration, no basis inverse; it converges to pdlp_tol relative
-    # KKT and falls back to the primal when it cannot certify optimality
+    # KKT and falls back to the primal when it cannot certify optimality;
+    # "ipm": the Mehrotra predictor-corrector interior point
+    # (simplex/primal_dual.py) over the dense scaled operator — one
+    # normal-equation product A·D·Aᵀ and one Cholesky per iteration — with
+    # the same crossover and fall back as "pdlp"
     algorithm: str = "primal"
     pdlp_tol: float = 1e-8
     pdlp_round: int = 256
@@ -119,6 +123,20 @@ class SolverConfig:
     pdlp_precision: str = "auto"
     # most refinement zooms of the mixed-precision stage (0 = none)
     pdlp_refine: int = 4
+    # interior point: iterate until the relative KKT (max of primal and dual
+    # infeasibility and duality gap) reaches ipm_tol; on a stall accept the
+    # best point iff it is <= ipm_accept, else fall back to the primal;
+    # ipm_max_iter bounds the Mehrotra iterations (20-60 typical; 200 leaves
+    # room for the one cold restart at the top rung)
+    ipm_tol: float = 1e-8
+    ipm_accept: float = 1e-6
+    ipm_max_iter: int = 200
+    # Cholesky precision ladder: "f64" factors in f64 from the start;
+    # "mixed" starts on an f32 factor (a preconditioner under f64 iterative
+    # refinement) and climbs to f64 when it stops contracting; "auto" = f64
+    # on every device (the JAX package's "mixed" on an accelerator exists
+    # because the TPU emulates f64)
+    ipm_ladder: str = "auto"
     # device matrix of the first-order engine: "auto" and "ell" take the
     # operator matrix_format picks; "bricks" is not ported
     pdlp_matrix: str = "auto"

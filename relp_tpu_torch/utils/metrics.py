@@ -37,8 +37,9 @@ class SolveMetrics:
     # the engine that produced the answer: "primal", "pdlp" (the first-order
     # point), "pdlp+crossover" (the vertex recovered from it), "pdlp→primal"
     # (the first-order engine gave up and the primal solved), "dual" (the
-    # device dual simplex), "dual-lu" (the host sparse-LU dual) or
-    # "dual→primal" (the dual could not certify and the primal solved)
+    # device dual simplex), "dual-lu" (the host sparse-LU dual),
+    # "dual→primal" (the dual could not certify and the primal solved), and
+    # "ipm", "ipm+crossover", "ipm→primal" as for "pdlp"
     engine: str = ""
     # update engine of the host LU under "dual-lu": "forrest-tomlin" (the
     # native library) or "product-form"
@@ -59,7 +60,9 @@ class SolveMetrics:
     # PDHG iterations in all and in the f32 stage, restart rounds, the host
     # reads made between them (at most one each; the rest of host_reads are
     # the driver's), refinement zooms, the final f64 relative KKT, and the
-    # crossover's push pivots
+    # crossover's push pivots; under algorithm="ipm" fo_iterations and
+    # fo_kkt are the interior point's Mehrotra iterations and KKT, and
+    # ipm_ladder the factor precisions it ran ("f64", "f32", "f32→f64")
     fo_iterations: int = 0
     fo_f32_iterations: int = 0
     fo_rounds: int = 0
@@ -67,6 +70,7 @@ class SolveMetrics:
     fo_refines: int = 0
     fo_kkt: float = 0.0
     push_pivots: int = 0
+    ipm_ladder: str = ""
 
     @property
     def iters_per_s(self) -> float:

@@ -8,10 +8,13 @@ matrix), then: the library is the port's own build under
 ``relp_tpu_torch/_build/``, written whole; ``_make_lu`` picks the engine as
 the JAX package does; and ``solve_dual_lu`` and ``primal_push`` on the FT
 engine equal the JAX package's on its FT engine, exactly (the same C++ source
-and the same numpy code).
+and the same numpy code; the JAX binding loads this package's build of that
+source for the comparison).
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -200,10 +203,22 @@ def test_make_lu_picks_the_engine_as_the_jax_package_does(monkeypatch):
     assert isinstance(torch_lu._make_lu(B, A), torch_lu._LuEta)
 
 
-@pytest.mark.skipif(not jax_ftlu.available(), reason="the JAX package's ftlu build unavailable")
+def _jax_binding_on_the_ports_build(monkeypatch):
+    """Point the JAX package's ftlu binding at this package's own build of
+    the same native/ftlu.cpp (written whole under a hashed name), for one
+    test: the JAX package builds straight into native/_build/libftlu.so, and
+    test workers that collect at once can race on that path.  monkeypatch
+    restores the binding's state afterwards."""
+    monkeypatch.setattr(jax_ftlu, "_SO", Path(ftlu.load()._name))
+    monkeypatch.setattr(jax_ftlu, "_lib", None)
+    monkeypatch.setattr(jax_ftlu, "_lib_failed", False)
+    assert jax_ftlu.available()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_lu_host_on_the_ft_engine_equals_the_jax_packages(seed, monkeypatch):
     monkeypatch.delenv("RELP_TPU_NO_FTLU", raising=False)
+    _jax_binding_on_the_ports_build(monkeypatch)
     A, b, c, lb, ub, x0, rng = _boxed_lp(seed)
     m, n = A.shape
     basis0 = n + np.arange(m)

@@ -156,7 +156,10 @@ ENDATA
     (("--algorithm", "dual", "--xl-engine", "lu"), WIKI_MPS),
     (("--mip",), KNAPSACK_MPS),
     (("--mip", "--mip-cuts", "0", "--mip-branch", "fractional"), KNAPSACK_MPS),
-], ids=["dual", "dual-devex", "dual-lu", "mip", "mip-plain"])
+    (("--algorithm", "ipm"), WIKI_MPS),
+    (("--algorithm", "ipm", "--ipm-ladder", "mixed", "--no-crossover", "--ipm-tol", "1e-9",
+      "--ipm-accept", "1e-7", "--ipm-max-iter", "50"), WIKI_MPS),
+], ids=["dual", "dual-devex", "dual-lu", "mip", "mip-plain", "ipm", "ipm-flags"])
 def test_cli_new_flags_print_the_jax_cli_line(tmp_path, flags, fixture):
     path = tmp_path / "problem.mps"
     path.write_text(fixture)
@@ -185,10 +188,9 @@ def test_cli_mip_json_carries_the_search_counters(tmp_path, capsys):
 def test_cli_refuses_flags_not_ported(tmp_path, capsys):
     path = tmp_path / "testprob.mps"
     path.write_text(WIKI_MPS)
-    for flags, said in ((["--algorithm", "ipm"], "--algorithm ipm is not ported"),
+    for flags, said in ((["--mesh-cols", "2"], "--mesh-cols is not ported"),
                         (["--algorithm", "pdlp", "--pdlp-matrix", "bricks"],
-                         "--pdlp-matrix bricks is not ported"),
-                        (["--ranging"], "--ranging is not ported")):
+                         "--pdlp-matrix bricks is not ported")):
         with pytest.raises(SystemExit) as exc:
             cli.main([*flags, str(path)])
         assert exc.value.code == 2
@@ -236,14 +238,16 @@ def test_cuda_without_a_gpu_raises(tmp_path, monkeypatch):
 def test_config_refuses_engines_not_ported():
     assert SolverConfig(algorithm="pdlp").pdlp_matrix == "auto"
     assert SolverConfig(algorithm="dual").dual_ratio == "sort"  # the JAX default is "bisect"
-    for field, value in (("algorithm", "ipm"), ("pdlp_matrix", "bricks"), ("mesh_cols", 2)):
+    assert SolverConfig(algorithm="ipm").ipm_ladder == "auto"
+    for field, value in (("pdlp_matrix", "bricks"), ("mesh_cols", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SolverConfig(**{field: value})
     with pytest.raises(ValueError):
         SolverConfig(pricing="steepest")
     with pytest.raises(ValueError):
         SolverConfig(inverse="lu")
-    for field in ("dual_pricing", "dual_ratio", "mip_branch", "xl_engine"):
+    for field in ("algorithm", "dual_pricing", "dual_ratio", "mip_branch", "xl_engine",
+                  "ipm_ladder", "pdlp_matrix"):
         with pytest.raises(ValueError):
             SolverConfig(**{field: "nonsense"})
     assert SolverConfig().pricing == "devex" and SolverConfig().matrix_format == "auto"

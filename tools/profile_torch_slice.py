@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of relp_tpu_torch's iterations goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual] [--nodes 4096]
-                                         [--iters 600] [--out FILE]
+    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual|ipm] [--nodes 4096]
+                                         [--iters 600] [--out FILE] [--crossover]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
 LP of ``--nodes`` nodes on the ELL operator, or the dense LP at 768 × 1536 on
@@ -20,11 +20,23 @@ does it, and ``solve_pdhg_chunk`` runs ``--iters`` PDHG steps (whole rounds
 of 256) from the initial state, for each restart scheme in f32 and in f64.
 Per iteration it prints launches, kernel time, wall, the device's busy
 share, and the share of ``ell_price`` + ``ell_spmv`` in the kernel time.
+
+``--problem ipm`` takes the interior point (``algorithm="ipm"``) through
+``solve_computational_form`` on the dense LP at 768 × 1536 and on the
+max-flow LP of ``--nodes`` nodes, under ``ipm_ladder="f64"`` and ``"mixed"``:
+the wall of its parts on the host clock (the Ruiz scaling, ``solve_ipm``,
+``_factor`` — the normal-equation product and its Cholesky — and, with
+``--crossover``, the crossover and its host push, under the f64 ladder
+only), then a profiled run without crossover: kernel time, launches and
+host reads per interior-point iteration, the heaviest kernels, and the device
+time under ``aten::mm`` (the GEMM, and the vector-matrix products ``v @ A``),
+the Cholesky, its solves and ``aten::mv`` (the products ``A @ x``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -226,12 +238,122 @@ def profile_dual(args, smi) -> list[str]:
     return lines
 
 
+def _device_total(avg) -> float:
+    """Device time of a profiler average, its children's kernels included."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(avg, name):
+            return getattr(avg, name)
+    return 0.0
+
+
+IPM_PARTS = (("driver", "_ruiz"), ("primal_dual", "solve_ipm"), ("primal_dual", "_factor"),
+             ("driver", "_crossover"), ("lu_host", "primal_push"))
+IPM_OPS = ("aten::mm", "aten::linalg_cholesky_ex", "aten::cholesky_solve", "aten::mv")
+
+
+def profile_ipm(args, smi) -> list[str]:
+    """The interior point on the dense LP and the max flow, both ladders."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex import driver, lu_host, primal_dual
+    from relp_tpu_torch.simplex.driver import solve_computational_form
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    modules = {"driver": driver, "primal_dual": primal_dual, "lu_host": lu_host}
+    spent: dict[str, list] = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                entry = spent.setdefault(name, [0.0, 0])
+                entry[0] += time.perf_counter() - t0
+                entry[1] += 1
+        return wrapper
+
+    m, n = chip_smoke.DENSE_SHAPE
+    problems = ((dense_lp(m, n), f"dense LP {m}x{n}"),
+                (chip_smoke.slice_problem(args.nodes)[0], f"max-flow N={args.nodes}"))
+    lines = []
+    for general, name in problems:
+        presolve(general)
+        cf = build_computational_form(general, scale=True)
+        for ladder in ("f64",) if args.crossover else ("f64", "mixed"):
+            cfg = SolverConfig(algorithm="ipm", ipm_ladder=ladder, pdlp_crossover=False)
+
+            def run(config):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve_computational_form(cf, config, device="cuda")
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, res
+
+            run(cfg)  # warm-up: library handles, allocator
+            wall, res = run(cfg)
+            met = res.metrics
+            its = max(met.fo_iterations, 1)
+            originals = {(mod, fn): getattr(modules[mod], fn) for mod, fn in IPM_PARTS}
+            spent.clear()
+            for (mod, fn), orig in originals.items():
+                setattr(modules[mod], fn, timed(fn, orig))
+            try:
+                parts_wall, parts = run(dataclasses.replace(cfg, pdlp_crossover=args.crossover))
+            finally:
+                for (mod, fn), orig in originals.items():
+                    setattr(modules[mod], fn, orig)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prof_wall, _ = run(cfg)
+            avgs = prof.key_averages()
+            attr = _device_attr(avgs[0])
+            kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+            busy_us = sum(getattr(a, attr) for a in kernels)
+            launches = sum(a.count for a in kernels)
+            ops = {op: sum(_device_total(a) for a in avgs if a.key == op) for op in IPM_OPS}
+            lines.append(
+                f"[profile] ipm {name} {ladder} (m={met.m} n={met.n}, padded {met.m_padded}x"
+                f"{met.n_padded}): {met.fo_iterations} iterations, ladder run {met.ipm_ladder}, "
+                f"KKT {met.fo_kkt:.2e}, objective {res.objective:.15g}; solve wall {wall:.3f} s "
+                f"unprofiled = {wall / its * 1e3:.2f} ms/iter; host reads {met.host_reads} "
+                f"[{smi}]")
+            lines.append(
+                f"[profile]   parts (host clock, synchronised; run of {parts_wall:.3f} s"
+                f"{', crossover ' + parts.metrics.engine if args.crossover else ''}): "
+                + "; ".join(f"{k} {v[0]:.3f} s in {v[1]} calls" for k, v in spent.items()))
+            lines.append(
+                f"[profile]   profiled {prof_wall:.3f} s: kernel time {busy_us / 1e3:.2f} ms = "
+                f"{busy_us / its / 1e3:.3f} ms/iter, busy share {busy_us / 1e6 / prof_wall:.4f}, "
+                f"launches {launches / its:.1f}/iter; device ms by op: "
+                + ", ".join(f"{k} {v / 1e3:.2f}" for k, v in ops.items())
+                + f"; aten::mm (the GEMM, and the vector-matrix products with A) + Cholesky "
+                f"{(ops['aten::mm'] + ops['aten::linalg_cholesky_ex']) / max(busy_us, 1e-9):.3f}"
+                " of kernel time")
+            for a in sorted(kernels, key=lambda a: getattr(a, attr), reverse=True)[:6]:
+                lines.append(f"[profile]   kernel {getattr(a, attr) / its / 1e3:8.3f} ms/iter "
+                             f"{a.count / its:6.2f} launches/iter  {a.key[:90]}")
+            if args.out:
+                lines.append(avgs.table(sort_by="self_cpu_time_total", row_limit=25))
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp", "dual"), default="maxflow")
+    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp", "dual", "ipm"),
+                    default="maxflow")
     ap.add_argument("--nodes", type=int, default=4096, help="size of the max-flow graph")
     ap.add_argument("--iters", type=int, default=600)
     ap.add_argument("--out", help="file for the full profiler tables")
+    ap.add_argument("--crossover", action="store_true",
+                    help="with --problem ipm: time the crossover too (f64 ladder only)")
     ap.add_argument("--count-ops", action="store_true",
                     help="with --problem dual: count tensor operations on the CPU instead")
     args = ap.parse_args(argv)
@@ -254,8 +376,9 @@ def main(argv=None) -> int:
     from relp_tpu_torch.utils.config import SolverConfig
 
     smi = chip_smoke.phase_device()
-    if args.problem in ("pdlp", "dual"):
-        lines = (profile_pdlp if args.problem == "pdlp" else profile_dual)(args, smi)
+    if args.problem in ("pdlp", "dual", "ipm"):
+        lines = {"pdlp": profile_pdlp, "dual": profile_dual, "ipm": profile_ipm}[args.problem](
+            args, smi)
         shown = [line for line in lines if line.startswith("[profile]")]
         print("\n".join(shown))
         if args.out:
