@@ -25,13 +25,20 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              ``ell_price_select`` and ``dense_price_select`` (the pricing
              pass with the entering column chosen in the kernel) on the two
              operators with the state of a solve cut at 600 iterations, and
-             on made-up ties.  Each pricing kernel and ``ell_spmv`` is run
-             twice and must give the same bits.  Device time per launch (CUDA events over
+             on made-up ties; the lane kernels ``dense_price_lanes`` (with
+             and without ``c``) for 64 lanes against the dense LP's shared
+             operator, 16 lanes against the N = 1,024 max flow's dense
+             operator (the first-order fleet's) and a stacked A[4, 256, 512],
+             and ``dense_price_select_lanes`` on the state of a lane-batched
+             solve cut mid-way, each lane also held bit for bit against the
+             single-vector kernel on its data.  Each pricing kernel and
+             ``ell_spmv`` is run twice and must give the same bits.  Device time per launch (CUDA events over
              batches of 50 launches) beside the plain version's, the bound
              (the bytes the call must move at 3.35 TB/s, or its operations
              at the card's peak) and one PyTorch call as a yardstick
-             (``addmv``/``mv`` of the dense window, ``mv`` of a sparse CSR
-             matrix), and the time per call as the host issues it.
+             (``addmv``/``mv`` of the dense window, ``addmm``/``mm`` or
+             ``baddbmm``/``bmm`` of the lanes, ``mv`` of a sparse CSR matrix),
+             and the time per call as the host issues it.
 5. slice   — a seeded 4,096-node max-flow LP (32,768 arcs) written to MPS
              and solved through ``relp_tpu_torch.api.solve(path)`` on the
              ELL operator; the objective must equal ``scipy``'s max-flow
@@ -109,16 +116,36 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              measures); the max flow at N = 1,024 with crossover and at
              N = 4,096 without (a 1 GiB dense operator), against scipy's max
              flow.
-13. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
+13. fleet  — ``solve_general_forms_batched`` on the card, one engine each:
+             the interior-point fleet on bench.py's fleet configuration
+             (DENSE-768x1536, 64 scenarios, demand and cost moved 3 %, seed
+             20260819, presolve off), every lane's primal residual and KKT
+             gap from its own x and duals under 1e-6 and lanes 0 and 63
+             against HiGHS (solved meanwhile by two more processes); the
+             lane-batched primal on 64 scenarios of the dense LP at 256 × 512
+             (costs moved 3 %, demands kept: see phase_fleet; presolve off as
+             in every fleet here), warm from one base solve, every lane
+             against HiGHS, with
+             ``dense_price_select_lanes`` and ``dense_price_lanes`` at least
+             once per batched iteration; the first-order fleet on 16
+             perturbed max flows at N = 1,024 (shared A, presolve off), each
+             against ``scipy``'s max flow, with ``dense_price_lanes`` at least
+             once per PDHG step.  Wall, LPs/s, iterations, host reads per
+             step, launches per iteration and peak memory of each.  Then
+             ``examples/torch_scenario_fleet.py`` (16 scenarios, the IPM fleet).
+14. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
 
 Launch counts: every kernel's count is set to 0 just before each path that
-runs it (probe, slice, dense, pdlp) and read just after; launches made to
+runs it (probe, slice, dense, pdlp, the primal and first-order fleets) and
+read just after; launches made to
 compare a kernel with its plain version do not count.  (``dual`` is the
 N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
 ``launches`` is the count of the path whose shape and mode the kernel's
 timed row has: ``pdlp`` at N = 4,096 for ``ell_price`` and ``ell_spmv`` (f64
-``c − Aᵀy`` and A·x), ``dense`` for ``dense_price`` (the f32 sum row); the
-other first-order runs keep their counts apart.  Every path's counts are
+``c − Aᵀy`` and A·x), ``dense`` for ``dense_price`` (the f32 sum row), the
+first-order fleet for ``dense_price_lanes`` (16 lanes of ``C − Y·A`` at
+N = 1,024, f32) and the primal fleet for ``dense_price_select_lanes`` (the
+f32 scan); the other first-order runs keep their counts apart.  Every path's counts are
 printed in its phase and checked at the end.  Any failure raises, so the
 run exits nonzero without the final line.  The line before the last is the
 kernel report, one JSON object; the last line is ``{"ok": true, "device":
@@ -164,10 +191,17 @@ CUT_DEMAND = (97.0, 610.0, 395.0, 211.0)
 POOL_SHAPE = (64, 10_000)   # tests/test_lazy_pool_10k.py's masked pool
 POOL_BATCH = 32         # inactive columns activated per column-generation round
 IPM_NODES = 4096        # the interior point's largest max flow (dense operator, 1 GiB)
-# NVIDIA's H100 SXM data sheet: device memory rate, and the float32 / float64
-# rates outside the tensor cores
+FLEET_SEED = 20260819   # bench.py's fleet suite: its perturbations' seed
+FLEET_LANES = 64        # bench.py's DENSE fleet: 64 scenarios
+FLEET_PRIMAL_SHAPE = (256, 512)
+FLEET_FLOW_LANES = 16
+FLEET_FLOW_NODES = 1024
+# NVIDIA's H100 SXM data sheet: device memory rate, the float32 rate outside
+# the tensor cores, and the float64 rate on them (the larger of the two
+# float64 rates, 34 TFLOP/s outside them): a bound is the least time the card
+# could take
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+PEAK_FLOPS = {"f32": 67e12, "f64": 67e12}
 
 # the classic MPS example (en.wikipedia.org, "MPS (format)"); optimum -8
 WIKI_MPS = """NAME          TESTPROB
@@ -199,6 +233,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "ell_spmv": ("relp_tpu_torch/csrc/sparse_kernels.cu", "relp_tpu/ops/pallas_kernels.py:64"),
     "dense_price": ("relp_tpu_torch/csrc/dense_kernels.cu", "tools/probe_pallas.py:50"),
     "dense_price_select": ("relp_tpu_torch/csrc/dense_kernels.cu", "tools/probe_pallas.py:50"),
+    "dense_price_lanes": ("relp_tpu_torch/csrc/dense_kernels.cu", "tools/probe_pallas.py:50"),
+    "dense_price_select_lanes": ("relp_tpu_torch/csrc/dense_kernels.cu",
+                                 "tools/probe_pallas.py:50"),
     "probe_scale_f32": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:24"),
     "probe_scale_f64": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:37"),
 }
@@ -206,13 +243,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 
 def _wrappers():
     """Every kernel wrapper by name (each carries its ``launches`` count)."""
-    from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_select
+    from relp_tpu_torch.ops.dense_kernels import (
+        dense_price, dense_price_lanes, dense_price_select, dense_price_select_lanes,
+    )
     from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
     from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_price_select, ell_spmv
 
     return {"ell_price": ell_price, "ell_price_select": ell_price_select,
             "ell_spmv": ell_spmv, "dense_price": dense_price,
-            "dense_price_select": dense_price_select,
+            "dense_price_select": dense_price_select, "dense_price_lanes": dense_price_lanes,
+            "dense_price_select_lanes": dense_price_select_lanes,
             "probe_scale_f32": probe_scale_f32, "probe_scale_f64": probe_scale_f64}
 
 
@@ -342,10 +382,12 @@ def _compare(label, kernel_fn, plain_fn, tol, smi, *, nbytes, flops, tag,
     choice = ""
     if isinstance(got, tuple):
         (q, has, got), (q0, has0, want) = got, want
-        if (int(q), bool(has)) != (int(q0), bool(has0)):
-            raise AssertionError(f"[kernels] {label}: chose (q, has) = ({int(q)}, {bool(has)}), "
-                                 f"the plain version ({int(q0)}, {bool(has0)})")
-        choice = f"q {int(q)} has {bool(has)} == plain; d_q "
+        if not (torch.equal(q, q0) and torch.equal(has, has0)):
+            raise AssertionError(f"[kernels] {label}: chose (q, has) = ({q.tolist()}, "
+                                 f"{has.tolist()}), the plain version ({q0.tolist()}, "
+                                 f"{has0.tolist()})")
+        choice = (f"q {int(q)} has {bool(has)} == plain; d_q " if q.dim() == 0 else
+                  f"(q, has) of all {q.numel()} lanes == plain; d_q ")
     err = (got - want).abs()
     tol = tol * max(1.0, scale)
     bound = tol + tol * want.abs()
@@ -561,12 +603,12 @@ def _mid_solve_state(general, dev, iters):
     seen = []
     price = PrimalKernel._price
 
-    def watched(self, s, c_eff, vs):
+    def watched(self, s, c_eff, vs, live=None):
         if self.steps == iters - 1:
             sel = Selection(s.vstat.clone(), self.can_enter, s.w.clone(), s.bland.clone(),
                             self.cfg.eps_dual, self.cfg.pricing == "devex")
             seen.append((sel, s.pi.clone(), c_eff.clone()))
-        return price(self, s, c_eff, vs)
+        return price(self, s, c_eff, vs, live)
 
     PrimalKernel._price = watched
     try:
@@ -670,6 +712,149 @@ def _kernels_probe(smi, dev):
     return report
 
 
+def _padded_dense(general):
+    """The padded dense A of ``general``'s computational form without
+    presolve (as the fleets run), on the host."""
+    import numpy as np
+
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.simplex.driver import _round_up
+
+    cf = build_computational_form(general, scale=True)
+    A = np.zeros((_round_up(cf.m, 8), _round_up(cf.n, 128)))
+    A[: cf.m, : cf.n] = cf.A.toarray()
+    return A
+
+
+def _mid_lane_state(dev, iters):
+    """``(selection, V, C, live)`` as the lane-batched primal's f32 scan meets
+    them at step ``iters`` of a cold solve of the primal fleet's LPs."""
+    import torch
+
+    from relp_tpu_torch.ops.select_epilogue import Selection
+    from relp_tpu_torch.parallel import solve_batched
+    from relp_tpu_torch.simplex.core import LanePrimalKernel
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    A, b, c, lb, ub = _fleet_arrays(*FLEET_PRIMAL_SHAPE, FLEET_LANES, demand=False)
+    seen = []
+    price = LanePrimalKernel._price
+
+    def watched(self, s, c_eff, vs, live):
+        if self.steps == iters - 1:
+            sel = Selection(s.vstat.clone(), self.can_enter, s.w.clone(), s.bland.clone(),
+                            self.cfg.eps_dual, self.cfg.pricing == "devex")
+            seen.append((sel, s.pi.float().contiguous(), c_eff.float().contiguous(),
+                         live.clone()))
+        return price(self, s, c_eff, vs, live)
+
+    LanePrimalKernel._price = watched
+    try:
+        solve_batched(A, b, c, lb, ub, SolverConfig(), iters, device=dev)
+    finally:
+        LanePrimalKernel._price = price
+    if len(seen) != 1:
+        raise AssertionError(f"[kernels] the lane solve priced {len(seen)} times at step {iters}")
+    return seen[0], torch.as_tensor(A, dtype=torch.float32, device=dev)
+
+
+def _kernels_lanes(smi, dev, rng, dense_op):
+    """The lane kernels against their plain versions: ``dense_price_lanes``
+    for 64 lanes against the dense LP's shared operator and 16 against the
+    N = 1,024 max flow's dense operator (f32 and f64, with and without
+    ``C``), for a stacked A[4, 256, 512]; ``dense_price_select_lanes`` on a
+    lane-batched solve's state.  Each lane is also held bit for bit against
+    the single-vector kernel on its data."""
+    import torch
+
+    from relp_tpu_torch.ops.dense_kernels import (
+        dense_price, dense_price_lanes, dense_price_lanes_plain, dense_price_select,
+        dense_price_select_lanes, dense_price_select_lanes_plain,
+    )
+
+    general, _ = slice_problem(FLEET_FLOW_NODES)
+    flow_A = torch.as_tensor(_padded_dense(general), device=dev)
+    cases = {  # label -> (A, lanes)
+        f"dense LP operator shared by {FLEET_LANES} lanes m={dense_op.shape[0]} "
+        f"n={dense_op.shape[1]}":
+            (dense_op.A, FLEET_LANES),
+        f"max-flow N={FLEET_FLOW_NODES} dense operator shared by {FLEET_FLOW_LANES} lanes "
+        f"m={flow_A.shape[0]} n={flow_A.shape[1]}": (flow_A, FLEET_FLOW_LANES),
+        "stacked A[4, 256, 512]": (torch.as_tensor(rng.uniform(0.05, 1.0, (4, 256, 512)),
+                                                   device=dev), 4),
+    }
+    report = {}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for label, (A, L) in cases.items():
+            Ad = A.to(dtype).contiguous()
+            m, w = Ad.shape[-2:]
+            V = torch.as_tensor(rng.uniform(0.0, 1.0, (L, m)), dtype=dtype, device=dev)
+            C = torch.as_tensor(rng.uniform(0.0, 1.0, (L, w)), dtype=dtype, device=dev)
+            stacked = Ad.dim() == 3
+            if stacked:
+                lib_c = (lambda: torch.baddbmm(C.unsqueeze(1), V.unsqueeze(1), Ad, alpha=-1),
+                         "torch.baddbmm(C, V, A, alpha=-1)")
+                lib_s = (lambda: torch.bmm(V.unsqueeze(1), Ad), "torch.bmm(V, A)")
+            else:
+                lib_c = (lambda: torch.addmm(C, V, Ad, alpha=-1), "torch.addmm(C, V, A, alpha=-1)")
+                lib_s = (lambda: torch.mm(V, Ad), "torch.mm(V, A)")
+            common = dict(flops=2 * L * m * w, tag=tag, same_bits=True)
+            for mode, Cm, lib in (("c", C, lib_c), ("sum", None, lib_s)):
+                row = _compare(
+                    f"dense_price_lanes {tag} {'C-VA' if Cm is not None else 'VA'} {label} L={L}",
+                    lambda: dense_price_lanes(Ad, V, Cm),
+                    lambda: dense_price_lanes_plain(Ad, V, Cm), tol, smi,
+                    nbytes=_nbytes(Ad, V, Cm, Cm if Cm is not None else C),
+                    library_fn=lib[0], library=lib[1], **common)
+                got = dense_price_lanes(Ad, V, Cm)
+                if not all(
+                    torch.equal(got[s], dense_price(Ad[s] if stacked else Ad, V[s].contiguous(),
+                                                    None if Cm is None else Cm[s].contiguous()))
+                    for s in range(L)
+                ):
+                    raise AssertionError(f"[kernels] dense_price_lanes {tag} {label}: a lane "
+                                         "differs from the single-vector dense_price")
+                print(f"[kernels]   each of the {L} lanes equals the single-vector dense_price "
+                      "bit for bit")
+                report[(tag, mode, label)] = row
+
+    (sel, V32, C32, live), A32 = _mid_lane_state(dev, MID_SOLVE_ITERS // 6)
+    L = V32.shape[0]
+    m, n = A32.shape
+    print(f"[kernels] lane-batched primal at step {MID_SOLVE_ITERS // 6}: {int(live.sum())} of {L} "
+          f"lanes live, Bland in {int(sel.bland.sum())}, max devex weight {float(sel.w.max()):.3g}")
+    side = 17 * n * L  # vstat (8), can_enter (1) and w (8) per column and lane
+    for tag, tol, A, v, c in (("f32", F32_TOL, A32, V32, C32),
+                              ("f64", F64_TOL, A32.double(), V32.double(), C32.double())):
+        scale = float((v.abs() @ A.abs()).max())
+        row = _compare(
+            f"dense_price_select_lanes {tag} {L} lanes of {m}x{n}, mid-solve state",
+            lambda: dense_price_select_lanes(A, v, c, *sel),
+            lambda: dense_price_select_lanes_plain(A, v, c, *sel), tol, smi,
+            nbytes=_nbytes(A, v, c) + side, flops=2 * L * m * n, tag=tag, same_bits=True,
+            scale=scale, plain_runs=10)
+        q, has, d_q = dense_price_select_lanes(A, v, c, *sel)
+        if not all(
+            (int(q[s]), bool(has[s])) == tuple(map(lambda t: t.item(), one[:2]))
+            and torch.equal(d_q[s], one[2])
+            for s in range(L)
+            for one in [dense_price_select(A, v[s].contiguous(), c[s].contiguous(),
+                                           sel.vstat[s].contiguous(), sel.can_enter[s].contiguous(),
+                                           sel.w[s].contiguous(), sel.bland[s], sel.eps_dual,
+                                           sel.devex)]):
+            raise AssertionError(f"[kernels] dense_price_select_lanes {tag}: a lane differs "
+                                 "from the single-vector dense_price_select")
+        print("[kernels]   each lane's (q, has, d_q) equals the single-vector "
+              "dense_price_select's bit for bit")
+        report[(tag, "select")] = row
+    flow_label = next(k for k in cases if k.startswith("max-flow"))
+    # the fleets' launches: the first-order fleet's f32 C − Y·A at N = 1,024,
+    # the primal fleet's f32 scan
+    return {"dense_price_lanes": report[("f32", "c", flow_label)],
+            "dense_price_select_lanes": report[("f32", "select")]}
+
+
 def phase_kernels(smi):
     """Every kernel against its plain version on the card."""
     import numpy as np
@@ -687,6 +872,7 @@ def phase_kernels(smi):
     timings.update(_kernels_select(smi, dev, ell_op, slice_problem()[0], dense_op,
                                    dense_lp(*DENSE_SHAPE)))
     timings.update(_kernels_probe(smi, dev))
+    timings.update(_kernels_lanes(smi, dev, rng, dense_op))
     torch.cuda.empty_cache()
     return timings
 
@@ -1543,6 +1729,222 @@ def phase_ipm(smi, highs, highs_small):
     torch.cuda.empty_cache()
 
 
+def _fleet_data(m, n, lanes, demand=True):
+    """bench.py's DENSE fleet (bench.py:214-262): the base LP of
+    models/dense.py's generator (seed 0xDE55E) and, per scenario, x0 (unless
+    ``demand`` is False) and c0 moved by 3 % from the seed 20260819:
+    ``(A, X, C)``, demands ``A @ X[s]``.  A copy of the generator: the package
+    does not import bench.py."""
+    import numpy as np
+
+    rng = np.random.default_rng(FLEET_SEED)
+    zb = rng.standard_normal((lanes, 30_000)) if demand else np.zeros((lanes, 30_000))
+    zc = rng.standard_normal((lanes, 30_000))
+    g = np.random.default_rng(0xDE55E)
+    A = g.uniform(0.05, 1.0, (m, n))
+    x0 = g.uniform(0.2, 1.0, n)
+    c0 = g.uniform(0.1, 1.0, n)
+    return A, x0 * (1.0 + 0.03 * zb[:, :n]), c0 * (1.0 + 0.03 * zc[:, :n])
+
+
+def _fleet_arrays(m, n, lanes, demand=True):
+    """The fleet's LPs as stacked arrays (one shared A, 0 ≤ x ≤ 2)."""
+    import numpy as np
+
+    A, X, C = _fleet_data(m, n, lanes, demand)
+    return A, X @ A.T, C, np.zeros((lanes, n)), np.full((lanes, n), 2.0)
+
+
+def _fleet_generals(m, n, lanes, demand=True):
+    import scipy.sparse as sp
+
+    from relp_tpu_torch.model.elements import Objective, RangedConstraintRelation
+    from relp_tpu_torch.model.general_form import GeneralForm, Variable
+
+    A, X, C = _fleet_data(m, n, lanes, demand)
+    A_csc = sp.csc_matrix(A)
+    return [GeneralForm(objective=Objective.MINIMIZE, A=A_csc,
+                        constraint_types=[RangedConstraintRelation.equal()] * m, b=A @ X[s],
+                        variables=[Variable(f"x{j}", cost=C[s, j], lower=0.0, upper=2.0)
+                                   for j in range(n)], name=f"dense{s}")
+            for s in range(lanes)]
+
+
+def _fleet_highs(m, n, lanes, which, demand=True):
+    """HiGHS's objectives of the fleet's LPs ``which`` (in a second process)."""
+    from scipy.optimize import linprog
+
+    A, b, c, lb, ub = _fleet_arrays(m, n, lanes, demand)
+    out = {}
+    for s in which:
+        res = linprog(c[s], A_eq=A, b_eq=b[s], bounds=list(zip(lb[s], ub[s])), method="highs")
+        if res.status != 0:
+            raise AssertionError(f"HiGHS: fleet lane {s} status {res.status}")
+        out[s] = float(res.fun)
+    return out
+
+
+def _flow_fleet():
+    """The first-order fleet's LPs: the N = 1,024 max flow with each capacity
+    scaled by 1 + 0.03·z (seed 20260819) and rounded to thousandths, and
+    ``scipy``'s max flow of each (integers in thousandths)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import maximum_flow
+
+    from relp_tpu_torch.models.networks import max_flow_lp, random_arcs
+
+    nodes = FLEET_FLOW_NODES
+    arcs = random_arcs(nodes, 8, SEED)
+    z = np.random.default_rng(FLEET_SEED).standard_normal((FLEET_FLOW_LANES, len(arcs)))
+    generals, flows = [], []
+    for s in range(FLEET_FLOW_LANES):
+        lane = [(u, v, round(w * (1 + 0.03 * z[s, k]), 3)) for k, (u, v, w) in enumerate(arcs)]
+        cap = sp.csr_matrix((np.array([round(w * 1000) for *_, w in lane], np.int64),
+                             ([u for u, *_ in lane], [v for _, v, _ in lane])),
+                            shape=(nodes, nodes))
+        flows.append(maximum_flow(cap, 0, nodes - 1).flow_value / 1000.0)
+        generals.append(max_flow_lp(nodes, lane, 0, nodes - 1))
+    return generals, flows
+
+
+def _lane_kkt(general, res):
+    """Relative primal residual and duality gap of one lane's answer from its
+    own x and duals (original units; a box 0 ≤ x ≤ 2, equality rows)."""
+    import numpy as np
+
+    A = general.A.toarray()
+    x, y = res.simplex.x_structural, res.simplex.duals
+    c = np.array([v.cost for v in general.variables])
+    lb = np.array([v.lower for v in general.variables])
+    ub = np.array([v.upper for v in general.variables])
+    rp = max(np.abs(A @ x - general.b).max(), np.maximum(lb - x, x - ub).max(), 0.0) / (
+        1.0 + np.abs(general.b).max())
+    z = c - A.T @ y
+    pobj = c @ x
+    dobj = general.b @ y + np.where(z > 0, lb * z, ub * z).sum()
+    return rp, abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
+
+
+def _all_certified(engine, info):
+    """Every lane answered by the fleet ``engine`` on the card: a lane it
+    leaves uncertified goes to HiGHS on the host, whose answer would pass
+    the comparisons with a reference all the same."""
+    if info["engine"] != engine or info["certified"] != info["lanes"]:
+        raise AssertionError(f"[fleet] {engine}: engine {info['engine']} certified "
+                             f"{info['certified']} of {info['lanes']} lanes")
+
+
+def phase_fleet(smi, launches, fleet_refs):
+    """``solve_general_forms_batched`` on the card through each fleet engine."""
+    import torch
+
+    from relp_tpu_torch.simplex.driver import solve_general_forms_batched
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    def run(tag, generals, config, names=()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = []
+        with counted(names, launches, f"fleet {tag}"):
+            t0 = time.perf_counter()
+            results = solve_general_forms_batched(generals, config, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if len(stats) != 1:
+            raise AssertionError(f"[fleet] {tag}: {len(stats)} groups, expected one fleet")
+        info = stats[0]
+        its = max(info["iterations"], 1)
+        per_it = " ".join(f"{k} {v / its:.3f}" for k, v in PATHS[f"fleet {tag}"].items())
+        print(f"[fleet] {tag}: {info['lanes']} LPs of {info['shape'][0]}x{info['shape'][1]} "
+              f"(shared A {info['shared_A']}) engine {info['engine']} wall {wall:.3f} s "
+              f"({info['lanes'] / wall:.2f} LPs/s; engine group {info['wall_s']:.3f} s) "
+              f"iterations {info['iterations']} host_reads {info['host_reads']} "
+              f"({info['host_reads'] / its:.3f} per step) launches per iteration "
+              f"[{per_it or 'none of the hand kernels'}] peak_mem "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB "
+              f"{ {k: v for k, v in info.items() if k not in ('shape', 'lanes', 'shared_A')} } "
+              f"[{smi}]")
+        bad = [s for s, r in enumerate(results) if r.solution is None]
+        if bad:
+            raise AssertionError(f"[fleet] {tag}: lanes {bad} have no optimum")
+        return results, info
+
+    # 1. the interior-point fleet on bench.py's fleet configuration
+    m, n = DENSE_SHAPE
+    generals = _fleet_generals(m, n, FLEET_LANES)
+    results, info = run(f"ipm DENSE-{m}x{n}", generals,
+                        SolverConfig(algorithm="ipm", presolve=False))
+    _all_certified("ipm", info)
+    worst = max((_lane_kkt(g, r) for g, r in zip(generals, results)), key=max)
+    if max(worst) > 1e-6:
+        raise AssertionError(f"[fleet] ipm: a lane's primal residual / KKT gap {worst}")
+    ref = fleet_refs["ipm"].result()
+    rels = {s: abs(results[s].solution.objective_value - want) / abs(want)
+            for s, want in ref.items()}
+    if max(rels.values()) > 1e-6:
+        raise AssertionError(f"[fleet] ipm: lanes against HiGHS {rels}")
+    print(f"[fleet] ipm: every lane's primal residual and KKT gap from its own x and duals "
+          f"under 1e-6 (worst {worst[0]:.2e}, {worst[1]:.2e}); lanes {sorted(ref)} against "
+          f"HiGHS rel {max(rels.values()):.2e}")
+    del generals, results
+
+    # 2. the lane-batched primal, every lane warm from one base solve.  Costs
+    # move, demands do not: a demand shock can leave the base basis primal
+    # infeasible for a lane, and the warm start then pivots degenerately on
+    # it to the iteration limit, in the JAX package's code as in the single
+    # solve here (ROADMAP.md queue 3)
+    m, n = FLEET_PRIMAL_SHAPE
+    results, info = run(f"primal {m}x{n} (costs moved)",
+                        _fleet_generals(m, n, FLEET_LANES, demand=False),
+                        SolverConfig(presolve=False),
+                        ("dense_price_lanes", "dense_price_select_lanes"))
+    counts = PATHS[f"fleet primal {m}x{n} (costs moved)"]
+    if min(counts.values()) < info["iterations"]:
+        raise AssertionError(f"[fleet] primal: {counts} launches in {info['iterations']} "
+                             "batched iterations")
+    ref = fleet_refs["primal"].result()
+    rel = max(abs(results[s].solution.objective_value - want) / abs(want)
+              for s, want in ref.items())
+    if rel > OBJ_REL:
+        raise AssertionError(f"[fleet] primal: rel {rel:.2e} from HiGHS")
+    print(f"[fleet] primal: all {len(ref)} lanes equal HiGHS (rel {rel:.2e}); lane iterations "
+          f"{min(r.simplex.iterations for r in results)}-"
+          f"{max(r.simplex.iterations for r in results)} after the base solve's "
+          f"{info.get('base_iterations')}")
+
+    # 3. the first-order fleet on perturbed max flows
+    generals, flows = _flow_fleet()
+    results, info = run(f"pdlp max-flow N={FLEET_FLOW_NODES}", generals,
+                        SolverConfig(algorithm="pdlp", presolve=False), ("dense_price_lanes",))
+    got = PATHS[f"fleet pdlp max-flow N={FLEET_FLOW_NODES}"]["dense_price_lanes"]
+    if got < info["iterations"]:
+        raise AssertionError(f"[fleet] pdlp: dense_price_lanes {got} launches in "
+                             f"{info['iterations']} PDHG steps")
+    _all_certified("pdlp", info)
+    rel = max(abs(r.solution.objective_value - f) / f for r, f in zip(results, flows))
+    if rel > 1e-6 or not info["shared_A"]:
+        raise AssertionError(f"[fleet] pdlp: rel {rel:.2e} from scipy's max flow")
+    print(f"[fleet] pdlp: all {len(flows)} lanes certified by the fleet on the card and equal "
+          f"to scipy's max flow (rel {rel:.2e})")
+
+    # 4. examples/torch_scenario_fleet.py on the card, as a user runs it
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_scenario_fleet", ROOT / "examples" / "torch_scenario_fleet.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        results = example.main(algorithm="ipm")
+    if not all(r.solution is not None for r in results):
+        raise AssertionError(f"[fleet] examples/torch_scenario_fleet.py: {buf.getvalue()!r}")
+    for line in buf.getvalue().splitlines():
+        print(f"[fleet] examples/torch_scenario_fleet.py --algorithm ipm: {line}")
+    torch.cuda.empty_cache()
+
+
 def phase_cli():
     from relp_tpu_torch import cli
 
@@ -1574,6 +1976,15 @@ def main() -> int:
     colgen_ref = pool.submit(_colgen_reference)
     highs_small = pool.submit(_highs_objective, *OPTIONS_SHAPE)
     pool.shutdown(wait=False)
+    # the fleet's references: two of its 768 × 1536 lanes (~35 s each) and all
+    # 64 lanes of the primal fleet, in two more processes
+    fleet_pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    fleet_refs = {
+        "ipm": fleet_pool.submit(_fleet_highs, *DENSE_SHAPE, FLEET_LANES, (0, FLEET_LANES - 1)),
+        "primal": fleet_pool.submit(_fleet_highs, *FLEET_PRIMAL_SHAPE, FLEET_LANES,
+                                    range(FLEET_LANES), False),
+    }
+    fleet_pool.shutdown(wait=False)
     for phase in (phase_build, lambda: phase_probe(launches),
                   lambda: timings.update(phase_kernels(smi)),
                   lambda: phase_slice(smi, launches),
@@ -1581,7 +1992,8 @@ def main() -> int:
                   lambda: phase_options(smi), lambda: phase_pdlp(smi, launches),
                   lambda: phase_dual(smi, launches, highs, milp_ref),
                   lambda: phase_analysis(smi), lambda: phase_colgen(smi, colgen_ref),
-                  lambda: phase_ipm(smi, highs, highs_small), phase_cli):
+                  lambda: phase_ipm(smi, highs, highs_small),
+                  lambda: phase_fleet(smi, launches, fleet_refs), phase_cli):
         t0 = time.perf_counter()
         phase()
         print(f"[time] {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1591,9 +2003,10 @@ def main() -> int:
             min(count for counts in PATHS.values() for count in counts.values()) < 1:
         raise AssertionError(f"a kernel was not launched on its path: {PATHS}")
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], **timings[name]}
+         "launches": launches[name], **{k: timings[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,10 @@ primal path with the JAX package's primal options: MPS file → GeneralForm →
 presolve → computational form → two-phase bounded-variable revised simplex
 (dense, ELL or hybrid operator; dense or eta inverse) → named Solution; the
 dual simplex (``algorithm="dual"``) with bound reoptimization and branch and
-bound on it; and the first-order engine (``algorithm="pdlp"``).
+bound on it; the first-order engine (``algorithm="pdlp"``); the interior
+point (``algorithm="ipm"``); and fleets of LPs at once
+(``simplex.driver.solve_general_forms_batched``, ``parallel.solve_batched``,
+``fom.solve_pdhg_batched``).
 ``python -m relp_tpu_torch.probe`` checks a machine's CUDA toolchain.
 
 The device is explicit: ``api.solve(path, config, device=None)`` with
@@ -19,10 +22,14 @@ Layout (module names mirror the JAX package's):
     presolve/   presolving rules + postsolve reconstruction
     models/     LP model families (network flows, the dense LP), branch and bound
     providers/  per-variable feasibility logic
-    simplex/    the primal (core) and dual engines, reoptimization, the host
-                LU engines, state checker and checkpoint, and the host driver
-    fom/        the first-order (restarted PDHG) engine
-    ops/        constraint-matrix operators, CUDA kernels, linear algebra
+    simplex/    the primal (core, also lane-batched), dual and interior-point
+                engines, reoptimization, the host LU engines, state checker
+                and checkpoint, and the host driver (one LP, or a fleet:
+                solve_general_forms_batched)
+    fom/        the first-order (restarted PDHG) engine, one LP or a fleet
+    parallel/   scenario-batched solves (solve_batched: the lane-batched primal)
+    ops/        constraint-matrix operators (one LP's and a fleet's lanes), CUDA
+                kernels, linear algebra
     csrc/       CUDA C++ sources of the kernels (built at first use)
     utils/      config, device selection, metrics
 """

@@ -42,16 +42,37 @@
 //   registers (their statuses and weights loaded while the rows stream) and
 //   the candidates meet through one slot per column block.
 //
+// Lanes.  The same pass prices L right-hand sides at once (the fleet
+// engines' iterates, one lane per scenario; dense_price_lanes in
+// ops/dense_kernels.py): lane s is grid row blockIdx.z and reads
+// A + s * a_stride (0: one shared A, m * lda: lane s of a stacked
+// A[L, m, lda]), its own v, c, out, partial sums, column-block counters and,
+// under the selection epilogue, its own statuses, weights, Bland flag,
+// slots, ticket and outputs (LaneArgs).  Each lane runs exactly the code and
+// the sum order of a single-vector launch with the same plan, so lane s
+// equals dense_price(A_s, v_s, c_s) bit for bit.  An optional bool[L] mask
+// of live lanes lets a finished lane cost one early return per block; its
+// outputs are left as they were.  A is read from L2 once per lane: sharing
+// a tile of A between lanes (wgmma, TMA) is left for later.
+//
 // Built by relp_tpu_torch/ops/cuda_build.py into a shared library with a
 // plain C interface; every entry point launches on the given stream, does
-// not synchronise, allocates nothing (the caller passes `partial`, slices *
-// w elements, and `counters`, one zeroed unsigned per column block, when
-// slices > 1), and returns cudaGetLastError().
+// not synchronise, allocates nothing (the caller passes `partial`, lanes *
+// slices * w elements, and `counters`, one zeroed unsigned per lane and
+// column block, when slices > 1), and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "select_epilogue.cuh"
+
+// Element strides from one lane to the next (0: the lanes share it) and the
+// mask of live lanes; all zero and null for a single-vector launch.
+struct LaneArgs {
+  int64_t a, v, c, out;          // A, v, c and out
+  int64_t vstat, can_enter, w;   // the selection's inputs
+  const unsigned char* live;     // bool[L], or null: every lane is live
+};
 
 namespace {
 
@@ -137,8 +158,30 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ p,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dense_price_kernel(DenseArgs<T> a, SelectArgs s, int select) {
+dense_price_kernel(DenseArgs<T> a, SelectArgs s, LaneArgs l, int select) {
   constexpr int V = Vec<T>::n;
+  // this block's lane: its own operands, scratch and outputs
+  const int64_t ln = blockIdx.z;
+  if (l.live != nullptr && l.live[ln] == 0) return;  // uniform over the block
+  a.A += ln * l.a;
+  a.v += ln * l.v;
+  if (a.c != nullptr) a.c += ln * l.c;
+  if (a.out != nullptr) a.out += ln * l.out;
+  if (a.slices > 1) {
+    a.partial += ln * a.slices * a.w;
+    a.counters += ln * gridDim.x;
+  }
+  if (select) {
+    s.vstat += ln * l.vstat;
+    s.can_enter += ln * l.can_enter;
+    s.w += ln * l.w;
+    s.bland += ln;
+    s.slots += ln * gridDim.x;
+    s.ticket += ln;
+    s.q += ln;
+    s.has += ln;
+    s.d_q = static_cast<T*>(s.d_q) + ln;
+  }
   constexpr int kBlockCols = 32 * V;
   __shared__ T red[kWarps][kBlockCols];
   __shared__ Cand warps_s[relp::kMaxWarps];
@@ -259,9 +302,9 @@ template <typename T>
 int launch(const void* A, const void* v, const void* c, void* out,
            void* partial, void* counters, int m, int64_t lda, int64_t j0,
            int64_t w, int slices, int rows_per_slice, const SelectArgs* sel,
-           void* stream) {
-  if (w <= 0) return static_cast<int>(cudaGetLastError());
-  if (slices < 1 || rows_per_slice < 1 ||
+           const LaneArgs* lanes, int n_lanes, void* stream) {
+  if (w <= 0 || n_lanes == 0) return static_cast<int>(cudaGetLastError());
+  if (slices < 1 || rows_per_slice < 1 || n_lanes < 0 || n_lanes > 65535 ||
       (slices > 1 && (partial == nullptr || counters == nullptr)) ||
       (sel != nullptr && c == nullptr) || (sel == nullptr && out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -284,9 +327,10 @@ int launch(const void* A, const void* v, const void* c, void* out,
              (lda * static_cast<int64_t>(sizeof(T))) % 16 == 0;
   const dim3 block(32, kWarps);
   const dim3 grid(static_cast<unsigned>((w + kBlockCols - 1) / kBlockCols),
-                  static_cast<unsigned>(slices));
+                  static_cast<unsigned>(slices), static_cast<unsigned>(n_lanes));
   dense_price_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, sel != nullptr ? *sel : SelectArgs{}, sel != nullptr ? 1 : 0);
+      a, sel != nullptr ? *sel : SelectArgs{},
+      lanes != nullptr ? *lanes : LaneArgs{}, sel != nullptr ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,18 +342,18 @@ int relp_dense_price_f32(const void* A, const void* v, const void* c,
                          void* out, void* partial, void* counters, int m,
                          int64_t lda, int64_t j0, int64_t w, int slices,
                          int rows_per_slice, const SelectArgs* sel,
-                         void* stream) {
+                         const LaneArgs* lanes, int n_lanes, void* stream) {
   return launch<float>(A, v, c, out, partial, counters, m, lda, j0, w, slices,
-                       rows_per_slice, sel, stream);
+                       rows_per_slice, sel, lanes, n_lanes, stream);
 }
 
 int relp_dense_price_f64(const void* A, const void* v, const void* c,
                          void* out, void* partial, void* counters, int m,
                          int64_t lda, int64_t j0, int64_t w, int slices,
                          int rows_per_slice, const SelectArgs* sel,
-                         void* stream) {
+                         const LaneArgs* lanes, int n_lanes, void* stream) {
   return launch<double>(A, v, c, out, partial, counters, m, lda, j0, w, slices,
-                        rows_per_slice, sel, stream);
+                        rows_per_slice, sel, lanes, n_lanes, stream);
 }
 
 }  // extern "C"

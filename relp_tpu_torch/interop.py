@@ -5,7 +5,8 @@ package's operator arrays become this package's operator, and the basis
 state of a JAX ``SolveOutput`` becomes this package's ``solve_core``
 warm-start arguments, a JAX ``SolveOutput`` becomes this package's (and back),
 so a prior solve of one package warm-starts ``reoptimize_with_bounds`` of the
-other, a JAX dual ``DState`` becomes this package's, and a JAX ``PdhgState``
+other (a fleet's stacked problem arrays and lane-batched ``SolveOutput`` and
+``PdhgState`` cross the same way), a JAX dual ``DState`` becomes this package's, and a JAX ``PdhgState``
 becomes this package's (and back), so both packages' ``solve_pdhg_chunk`` can
 start from one state; so does an ``IpmState`` for the interior point's
 functions, and a solve's computational form and basis (``SimplexResult``)
@@ -74,11 +75,37 @@ def warm_start_from_numpy(basis, vstat, art_sign, phase, *, device: DeviceLike):
     )
 
 
+_PROBLEM_FIELDS = ("A", "b", "c", "lb", "ub")
+
+
+def stacked_problem_from_numpy(A, b, c, lb, ub, *, device: DeviceLike) -> dict:
+    """The stacked arrays of a fleet, as ``solve_batched`` and the JAX
+    package's ``solve_batched`` take them (``A`` ``[m, n]`` shared or
+    ``[L, m, n]``, ``b`` ``[L, m]``, ``c``/``lb``/``ub`` ``[L, n]``), as f64
+    tensors on ``device``, each copied, by name."""
+    dev = resolve_device(device)
+    out = {name: torch.tensor(np.asarray(v, np.float64), device=dev)
+           for name, v in zip(_PROBLEM_FIELDS, (A, b, c, lb, ub))}
+    L, m = out["b"].shape
+    n = out["A"].shape[-1]
+    if (out["A"].shape not in ((m, n), (L, m, n))
+            or any(out[k].shape != (L, n) for k in ("c", "lb", "ub"))):
+        raise ValueError("stacked problem: A must be [m, n] or [L, m, n], b [L, m] and "
+                         f"c, lb, ub [L, n]; got {[tuple(out[k].shape) for k in _PROBLEM_FIELDS]}")
+    return out
+
+
+def stacked_problem_to_numpy(arrays) -> dict:
+    """The stacked problem tensors (a mapping by name) as numpy copies."""
+    return {name: arrays[name].detach().cpu().numpy().copy() for name in _PROBLEM_FIELDS}
+
+
 def pdhg_state_from_numpy(fields, *, device: DeviceLike) -> PdhgState:
     """This package's ``PdhgState`` on ``device`` from the fields of a JAX
     ``PdhgState`` as numpy arrays (a mapping, or the fields in order, e.g.
-    ``[np.asarray(v) for v in jax_state]``).  Every leaf keeps its dtype and
-    is copied."""
+    ``[np.asarray(v) for v in jax_state]``), one LP's or a fleet's (every
+    leaf with a leading lane axis).  Every leaf keeps its dtype and is
+    copied."""
     dev = resolve_device(device)
     if not hasattr(fields, "keys"):
         fields = dict(zip(PdhgState._fields, fields, strict=True))
@@ -119,7 +146,8 @@ def solve_output_from_numpy(fields, *, device: DeviceLike) -> SolveOutput:
     """This package's ``SolveOutput`` on ``device`` from the fields of a JAX
     ``SolveOutput`` as numpy arrays (a mapping, or the fields in order, e.g.
     ``[np.asarray(v) for v in jax_out]``): what ``reoptimize_with_bounds``
-    takes as its prior solve."""
+    takes as its prior solve.  A fleet's (``solve_batched``'s, every field
+    with a leading lane axis) crosses over the same way."""
     return SolveOutput(host_reads=0, **_copied(fields, _JAX_OUTPUT_FIELDS,
                                                resolve_device(device)))
 

@@ -36,6 +36,15 @@ bstart+bsize)`` (partial pricing; ``c32`` then holds the window's entries),
 with the window's bounds as host ints.
 Indices that select one column or row (``q``) may be 0-dim tensors, so no
 value has to leave the device to pick it.
+
+:class:`LaneDenseMatrix` is the operator of a fleet's lanes (the iterates of
+L scenarios, one per lane): one shared ``A[m, n]`` (the scenario-analysis
+fleet, ``relp_tpu/parallel/batched.py:32``) or a stacked ``A[L, m, n]``, and
+the same interface over tensors with a leading lane axis.  Pricing, ``Vᵀ·A``
+and the devex rows go through ``dense_price_lanes`` /
+``dense_price_select_lanes``, each with an optional mask of live lanes;
+A·X and the column gathers stay ``torch.matmul``/``bmm`` and indexing, as
+they are XLA products outside any Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,7 +52,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from relp_tpu_torch.ops.dense_kernels import dense_price, dense_price_select
+from relp_tpu_torch.ops.dense_kernels import (
+    dense_price,
+    dense_price_lanes,
+    dense_price_select,
+    dense_price_select_lanes,
+)
 from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_price_select, ell_spmv
 
 
@@ -122,6 +136,94 @@ class DenseMatrix:
 
     def cols_matrix(self, idx):
         return self.A.index_select(1, idx.long())
+
+
+class LaneDenseMatrix:
+    """Dense padded A of L lanes: one shared ``A[m, n]`` or a stack
+    ``A[L, m, n]`` (f64, row-major), with an optional f32 shadow for pricing.
+    Every vector argument and result has a leading lane axis; ``live`` (bool
+    ``[L]``) lets the pricing kernels skip finished lanes.  ``lanes`` (an
+    index tensor) restricts a stacked operator to some lanes, for work that
+    only they need (a refactorization)."""
+
+    def __init__(self, A: torch.Tensor, A32: torch.Tensor | None = None):
+        if A.dim() not in (2, 3):
+            raise ValueError(f"LaneDenseMatrix: A must be [m, n] or [L, m, n], got {tuple(A.shape)}")
+        self.A = A.contiguous()
+        self.A32 = None if A32 is None else A32.contiguous()
+        self.shared = A.dim() == 2
+
+    @property
+    def shape(self):
+        """``(m, n)`` of one lane."""
+        return tuple(self.A.shape[-2:])
+
+    @property
+    def dtype(self):
+        return self.A.dtype
+
+    @property
+    def device(self):
+        return self.A.device
+
+    def with_f32(self) -> "LaneDenseMatrix":
+        if self.A32 is not None:
+            return self
+        return LaneDenseMatrix(self.A, self.A.float())
+
+    def _of(self, lanes):
+        return self.A if self.shared or lanes is None else self.A.index_select(0, lanes)
+
+    def matvec(self, X, lanes=None):
+        """``A_s·X[s]`` of every lane, ``[L, m]``."""
+        if self.shared:
+            return X @ self.A.T
+        return torch.bmm(self._of(lanes), X.unsqueeze(-1)).squeeze(-1)
+
+    def rmatvec(self, V, live=None):
+        return dense_price_lanes(self.A, V, live=live)
+
+    def rmatvec32(self, V32, live=None):
+        return dense_price_lanes(self.A32, V32, live=live)
+
+    def price(self, C, V, live=None, out=None):
+        return dense_price_lanes(self.A, V, C, live=live, out=out)
+
+    def price_select(self, C, V, sel, live=None, outs=None):
+        return dense_price_select_lanes(self.A, V, C, *sel, live=live, outs=outs)
+
+    def price32_select(self, C32, V32, sel, live=None, outs=None):
+        return dense_price_select_lanes(self.A32, V32, C32, *sel, live=live, outs=outs)
+
+    def cols(self, q):
+        """Column ``q[s]`` of lane ``s``, ``[L, m]``."""
+        if self.shared:
+            return self.A.index_select(1, q.long()).T
+        L, m, _ = self.A.shape
+        return self.A.gather(2, q.long().view(L, 1, 1).expand(L, m, 1)).squeeze(2)
+
+    def ftran(self, Binv, q):
+        return torch.bmm(Binv, self.cols(q).unsqueeze(-1)).squeeze(-1)
+
+    def col_dot(self, pi, q):
+        return (pi * self.cols(q)).sum(-1)
+
+    def entries(self, rows_i, cols_j):
+        """``A_s[rows_i[j], cols_j[s, j]]``, ``[L, k]`` (``rows_i`` shared)."""
+        rows_i = rows_i.long()[None, :].expand_as(cols_j)
+        if self.shared:
+            return self.A[rows_i, cols_j.long()]
+        lane = torch.arange(self.A.shape[0], device=self.device)[:, None].expand_as(cols_j)
+        return self.A[lane, rows_i, cols_j.long()]
+
+    def cols_matrix(self, idx, lanes=None):
+        """``A_s[:, idx[s]]`` of every lane (of ``lanes`` when given),
+        ``[k, m, len]``."""
+        idx = idx.long()
+        if self.shared:
+            return self.A[:, idx].permute(1, 0, 2)
+        A = self._of(lanes)
+        return A.gather(2, idx[:, None, :].expand(A.shape[0], A.shape[1], idx.shape[1]))
 
 
 class EllMatrix:

@@ -18,6 +18,14 @@ kernel.
 (``ops/select_epilogue.py``): the entering column ``(q, has, d_q)`` comes
 out of the kernel and ``d`` is never written.
 
+``dense_price_lanes`` and ``dense_price_select_lanes`` are the same kernel
+over L lanes (the iterates of a fleet, one per scenario) against one shared
+``A[m, n]`` or a stacked ``A[L, m, n]``: one launch, a third grid dimension
+of lanes, each lane with the plan, the code and the sum order of a
+single-vector launch, so lane ``s`` equals ``dense_price(A_s, V[s], C[s])``
+bit for bit.  A bool mask ``live[L]`` lets finished lanes cost nothing;
+their outputs are left as they were (pass ``out``/``outs`` to keep them).
+
 A wrapper given CPU tensors computes the plain PyTorch version.  Given CUDA
 tensors it launches the kernel or raises: there is no fallback.  Each
 wrapper counts its launches in a plain integer attribute, ``launches``.
@@ -31,6 +39,7 @@ from typing import Optional
 import torch
 
 from relp_tpu_torch.ops.select_epilogue import (
+    LaneArgs,
     Selection,
     check_selection,
     drop_workspace,
@@ -89,13 +98,14 @@ def slices_for(m: int, w: int, itemsize: int = 4) -> tuple[int, int]:
     return max(1, -(-m // rows)), rows
 
 
-def _launch(name, A, v, c, j0, w, out, sel, outs):
-    """One launch of the kernel: ``out`` (a tensor) or the selection."""
+def _launch(name, A, v, c, j0, w, out, sel, outs, n_lanes=1, lanes=None):
+    """One launch of the kernel: ``out`` (a tensor) or the selection, for
+    one vector or ``n_lanes`` lanes (``lanes``: their ``LaneArgs``)."""
     from relp_tpu_torch.ops.cuda_build import load_kernels, raise_on
 
     lib = load_kernels().lib
     dev = A.device
-    m, n = A.shape
+    m, n = A.shape[-2:]
     itemsize = A.element_size()
     slices, rows = slices_for(m, w, itemsize)
     col_blocks = -(-w // block_cols(itemsize))
@@ -104,15 +114,17 @@ def _launch(name, A, v, c, j0, w, out, sel, outs):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ws = None
         if slices > 1 or sel is not None:
-            ws = workspace(dev, stream, 1 + col_blocks, col_blocks,
-                           slices * w * itemsize if slices > 1 else 0)
+            # per lane: a ticket, then the column blocks' counters and slots
+            ws = workspace(dev, stream, n_lanes * (1 + col_blocks), n_lanes * col_blocks,
+                           n_lanes * slices * w * itemsize if slices > 1 else 0)
         args = None if sel is None else ctypes.byref(select_args(sel, ws, outs))
         err = fn(
             A.data_ptr(), v.data_ptr(), None if c is None else c.data_ptr(),
             None if out is None else out.data_ptr(),
             ws.partial.data_ptr() if slices > 1 else None,
-            ws.block_counters_ptr if slices > 1 else None,
-            m, n, j0, w, slices, rows, args, stream,
+            ws.counters_ptr(n_lanes) if slices > 1 else None,
+            m, n, j0, w, slices, rows, args,
+            None if lanes is None else ctypes.byref(lanes), n_lanes, stream,
         )
     if err != 0:
         drop_workspace(dev, stream)
@@ -174,3 +186,144 @@ def dense_price_select(A: torch.Tensor, v: torch.Tensor, c: torch.Tensor,
 
 
 dense_price_select.launches = 0
+
+
+# ---- lanes: L right-hand sides against one shared or a stacked A ----
+
+def _lane_window(A, j0, w):
+    return window(A.shape[-1] if A.dim() in (2, 3) else 0, j0, w)
+
+
+def dense_price_lanes_plain(A: torch.Tensor, V: torch.Tensor, C: Optional[torch.Tensor] = None,
+                            j0: int = 0, w: Optional[int] = None,
+                            live: Optional[torch.Tensor] = None,
+                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C − V·A_s[:, j0:j0+w]`` per lane ``s`` (``addmm`` for a shared
+    ``A``, ``einsum`` over a stack), or the products alone when ``C`` is
+    None; with ``live`` and ``out``, the rows of dead lanes are ``out``'s."""
+    w = A.shape[-1] - j0 if w is None else w
+    Aw = A[..., j0:j0 + w]
+    if A.dim() == 2:
+        res = V @ Aw if C is None else torch.addmm(C, V, Aw, alpha=-1)
+    else:
+        acc = torch.einsum("si,sij->sj", V, Aw)
+        res = acc if C is None else C - acc
+    if live is not None and out is not None:
+        res = torch.where(live[:, None], res, out)
+    return res
+
+
+def _check_lanes(name, A, V, C, w, live, out):
+    tensors = [A, V] + [t for t in (C, live, out) if t is not None]
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
+    if A.dtype not in _FLOATS:
+        raise TypeError(f"{name}: A must be float32 or float64, got {A.dtype}")
+    if V.dtype != A.dtype or any(t is not None and t.dtype != A.dtype for t in (C, out)):
+        raise TypeError(f"{name}: V, C and out must have A's dtype {A.dtype}")
+    L = V.shape[0] if V.dim() == 2 else -1
+    if (A.dim() not in (2, 3) or V.dim() != 2 or V.shape[1] != A.shape[-2]
+            or (A.dim() == 3 and A.shape[0] != L)
+            or (C is not None and C.shape != (L, w))
+            or (out is not None and out.shape != (L, w))
+            or (live is not None and (live.dtype != torch.bool or live.shape != (L,)))):
+        raise ValueError(
+            f"{name}: A must be [m, n] or [L, m, n], V [L, m], C and out [L, w] and live "
+            f"bool [L]; got {tuple(A.shape)}, {tuple(V.shape)}, "
+            f"{None if C is None else tuple(C.shape)}, {None if out is None else tuple(out.shape)}, "
+            f"{None if live is None else (live.dtype, tuple(live.shape))} (w={w})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: all tensors must be contiguous")
+    if L > 65535:
+        raise ValueError(f"{name}: at most 65,535 lanes, got {L}")
+    return devices.pop(), L
+
+
+def _lane_args(A, V, C, out, sel=None, live=None) -> LaneArgs:
+    m, n = A.shape[-2:]
+    args = LaneArgs(a=m * n if A.dim() == 3 else 0, v=V.shape[1],
+                    c=0 if C is None else C.shape[1], out=0 if out is None else out.shape[1],
+                    live=None if live is None else live.data_ptr())
+    if sel is not None:
+        args.vstat = sel.vstat.shape[-1]
+        args.can_enter = sel.can_enter.shape[-1] if sel.can_enter.dim() == 2 else 0
+        args.w = sel.w.shape[-1]
+    return args
+
+
+def dense_price_lanes(A: torch.Tensor, V: torch.Tensor, C: Optional[torch.Tensor] = None,
+                      j0: int = 0, w: Optional[int] = None,
+                      live: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dense_price`` of L lanes in one launch: ``out[s, j] = C[s, j] −
+    Σ_i V[s, i]·A_s[i, j0+j]`` (the sum alone when ``C`` is None), where
+    ``A_s`` is the shared ``A[m, n]`` or lane ``s`` of ``A[L, m, n]``.
+    ``live`` (bool ``[L]``) skips dead lanes; their rows of ``out`` (when
+    given, else unspecified) are left as they were."""
+    w = _lane_window(A, j0, w)
+    dev, L = _check_lanes("dense_price_lanes", A, V, C, w, live, out)
+    if dev.type == "cpu":
+        return dense_price_lanes_plain(A, V, C, j0, w, live, out)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_price_lanes: unsupported device {dev}")
+    if out is None:
+        out = torch.empty((L, w), dtype=A.dtype, device=dev)
+    _launch("dense_price_lanes", A, V, C, j0, w, out, None, None, L,
+            _lane_args(A, V, C, out, live=live))
+    dense_price_lanes.launches += 1
+    return out
+
+
+dense_price_lanes.launches = 0
+
+
+def dense_price_select_lanes_plain(A, V, C, vstat, can_enter, w, bland, eps_dual, devex,
+                                   j0: int = 0, w_cols: Optional[int] = None,
+                                   live: Optional[torch.Tensor] = None, outs=None):
+    """The plain lane price followed by the plain selection of every lane:
+    ``(q, has, d_q)``, each ``[L]``; with ``live`` and ``outs``, dead lanes
+    keep ``outs``' entries."""
+    sel = Selection(vstat, can_enter, w, bland, eps_dual, devex)
+    res = select_plain(dense_price_lanes_plain(A, V, C, j0, w_cols), sel, j0)
+    if live is not None and outs is not None:
+        res = tuple(torch.where(live, r, o) for r, o in zip(res, outs))
+    return res
+
+
+def dense_price_select_lanes(A: torch.Tensor, V: torch.Tensor, C: torch.Tensor,
+                             vstat: torch.Tensor, can_enter: torch.Tensor, w: torch.Tensor,
+                             bland: torch.Tensor, eps_dual: float, devex: bool,
+                             j0: int = 0, w_cols: Optional[int] = None,
+                             live: Optional[torch.Tensor] = None, outs=None):
+    """``dense_price_select`` of L lanes in one launch: each lane's entering
+    column of the window, priced as ``dense_price_lanes`` prices it, as
+    ``(q, has, d_q)`` of shape ``[L]`` (int64, bool, A's type).  ``vstat``
+    is ``[L, >= n]`` (int64), ``w`` ``[L, n]`` (float64), ``can_enter``
+    ``[n]`` (shared) or ``[L, n]`` (bool), ``bland`` ``[L]`` (bool).
+    ``live`` skips dead lanes, whose entries of ``outs`` (when given, else
+    unspecified) are left as they were."""
+    w_cols = _lane_window(A, j0, w_cols)
+    if C is None or w_cols < 1:
+        raise ValueError("dense_price_select_lanes: needs costs C and a window of >= 1 column")
+    dev, L = _check_lanes("dense_price_select_lanes", A, V, C, w_cols, live, None)
+    sel = Selection(vstat, can_enter, w, bland, eps_dual, devex)
+    check_selection("dense_price_select_lanes", sel, dev, A.shape[-1], lanes=L)
+    if outs is not None and (len(outs) != 3 or any(
+            t.shape != (L,) or t.dtype != dt or t.device != dev
+            for t, dt in zip(outs, (torch.int64, torch.bool, A.dtype)))):
+        raise ValueError("dense_price_select_lanes: outs must be (q, has, d_q), each [L], "
+                         "of int64, bool and A's dtype")
+    if dev.type == "cpu":
+        return dense_price_select_lanes_plain(A, V, C, *sel, j0, w_cols, live, outs)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_price_select_lanes: unsupported device {dev}")
+    if outs is None:
+        outs = select_outputs(dev, A.dtype, L)
+    _launch("dense_price_select_lanes", A, V, C, j0, w_cols, None, sel, outs, L,
+            _lane_args(A, V, C, None, sel, live))
+    dense_price_select_lanes.launches += 1
+    return outs
+
+
+dense_price_select_lanes.launches = 0

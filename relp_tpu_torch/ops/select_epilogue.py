@@ -43,28 +43,33 @@ class Selection(NamedTuple):
 
 
 def select_plain(d: torch.Tensor, sel: Selection, j0: int = 0):
-    """``(q, has, d_q)`` as 0-dim tensors for the reduced costs ``d`` of the
-    pool columns ``[j0, j0+len(d))``: ``q`` counts from the pool's first
-    column, ``d_q`` has ``d``'s type."""
-    hi = j0 + d.shape[0]
+    """``(q, has, d_q)`` for the reduced costs ``d`` of the pool columns
+    ``[j0, j0+len(d))``: ``q`` counts from the pool's first column, ``d_q``
+    has ``d``'s type.  0-dim tensors for one vector; for lanes (``d`` of
+    shape ``[L, w]``, the selection's tensors with a leading lane axis,
+    ``can_enter`` shared or per lane) each is ``[L]``."""
+    hi = j0 + d.shape[-1]
     d64 = d.to(torch.float64)
-    vs = sel.vstat[j0:hi]
+    vs = sel.vstat[..., j0:hi]
     free = vs == NB_FREE
     imp_l = ((vs == NB_LOWER) | free) & (d64 < -sel.eps_dual)
     imp_u = ((vs == NB_UPPER) | free) & (d64 > sel.eps_dual)
     viol = torch.where(imp_l, -d64, 0.0) + torch.where(imp_u, d64, 0.0)
-    viol = torch.where(sel.can_enter[j0:hi] & (vs != BASIC), viol, 0.0)
-    score = viol * viol / sel.w[j0:hi] if sel.devex else viol
-    j_best = torch.argmax(score)
-    ids = torch.arange(d.shape[0], device=d.device)
-    j_bland = torch.argmin(torch.where(viol > 0, ids, d.shape[0]))
-    j = torch.where(sel.bland, j_bland, j_best).reshape(1)
-    # index_select: a 0-dim tensor used as a plain index would be read by the host
-    return j[0] + j0, viol.index_select(0, j)[0] > 0, d.index_select(0, j)[0]
+    viol = torch.where(sel.can_enter[..., j0:hi] & (vs != BASIC), viol, 0.0)
+    score = viol * viol / sel.w[..., j0:hi] if sel.devex else viol
+    j_best = torch.argmax(score, dim=-1)
+    ids = torch.arange(d.shape[-1], device=d.device)
+    j_bland = torch.argmin(torch.where(viol > 0, ids, d.shape[-1]), dim=-1)
+    # gather: a 0-dim tensor used as a plain index would be read by the host
+    j = torch.where(sel.bland, j_bland, j_best).unsqueeze(-1)
+    return j[..., 0] + j0, viol.gather(-1, j)[..., 0] > 0, d.gather(-1, j)[..., 0]
 
 
-def check_selection(name: str, sel: Selection, dev: torch.device, n: int) -> None:
-    """Raise unless ``sel`` fits an ``n``-column pool on ``dev``."""
+def check_selection(name: str, sel: Selection, dev: torch.device, n: int,
+                    lanes: int | None = None) -> None:
+    """Raise unless ``sel`` fits an ``n``-column pool on ``dev`` (for
+    ``lanes`` lanes: ``vstat [L, >= n]``, ``w [L, n]``, ``bland [L]`` and
+    ``can_enter`` shared ``[n]`` or ``[L, n]``)."""
     for field, t, dtype in (("vstat", sel.vstat, torch.int64),
                             ("can_enter", sel.can_enter, torch.bool),
                             ("w", sel.w, torch.float64),
@@ -75,12 +80,14 @@ def check_selection(name: str, sel: Selection, dev: torch.device, n: int) -> Non
             raise ValueError(f"{name}: {field} on {t.device}, the operator on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {field} must be contiguous")
-    if (sel.vstat.dim() != 1 or sel.vstat.shape[0] < n or sel.can_enter.shape != (n,)
-            or sel.w.shape != (n,) or sel.bland.dim() != 0):
+    lead = () if lanes is None else (lanes,)
+    if (sel.vstat.shape[:-1] != lead or sel.vstat.shape[-1] < n
+            or sel.can_enter.shape not in ((n,), lead + (n,))
+            or sel.w.shape != lead + (n,) or sel.bland.shape != lead):
         raise ValueError(
-            f"{name}: vstat must be [>= {n}], can_enter and w [{n}] and bland 0-dim; got "
-            f"{tuple(sel.vstat.shape)}, {tuple(sel.can_enter.shape)}, {tuple(sel.w.shape)}, "
-            f"{tuple(sel.bland.shape)}")
+            f"{name}: vstat must be {list(lead)} + [>= {n}], can_enter [{n}] or w's shape, "
+            f"w {list(lead + (n,))} and bland {list(lead)}; got {tuple(sel.vstat.shape)}, "
+            f"{tuple(sel.can_enter.shape)}, {tuple(sel.w.shape)}, {tuple(sel.bland.shape)}")
 
 
 class SelectArgs(ctypes.Structure):
@@ -95,10 +102,22 @@ class SelectArgs(ctypes.Structure):
     ]
 
 
+class LaneArgs(ctypes.Structure):
+    """``LaneArgs`` of ``csrc/dense_kernels.cu``: element strides between
+    lanes (0: shared) and the mask of live lanes (null: all)."""
+
+    _fields_ = [
+        ("a", ctypes.c_int64), ("v", ctypes.c_int64), ("c", ctypes.c_int64),
+        ("out", ctypes.c_int64), ("vstat", ctypes.c_int64), ("can_enter", ctypes.c_int64),
+        ("w", ctypes.c_int64), ("live", ctypes.c_void_p),
+    ]
+
+
 class Workspace:
-    """Scratch of the kernels on one stream.  ``counters[0]`` is the
-    selection's ticket, ``counters[1:]`` the per-column-block counters of
-    ``dense_price``; all are zero between launches."""
+    """Scratch of the kernels on one stream.  A launch of L lanes (1 for
+    one vector) takes ``counters[:L]`` as the selections' tickets, one a
+    lane, and ``counters[L:]`` as ``dense_price``'s per-column-block
+    counters, lane after lane; all are zero between launches."""
 
     def __init__(self, dev, n_counters: int, n_slots: int, partial_bytes: int):
         self.counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)
@@ -114,9 +133,9 @@ class Workspace:
     def ticket_ptr(self) -> int:
         return self.counters.data_ptr()
 
-    @property
-    def block_counters_ptr(self) -> int:
-        return self.counters.data_ptr() + 4
+    def counters_ptr(self, lanes: int = 1) -> int:
+        """The first column-block counter of a launch of ``lanes`` lanes."""
+        return self.counters.data_ptr() + 4 * lanes
 
 
 _workspaces: dict[tuple[int, int], Workspace] = {}
@@ -147,11 +166,13 @@ def drop_workspace(dev: torch.device, stream: int) -> None:
     _workspaces.pop(key, None)
 
 
-def select_outputs(dev: torch.device, dtype: torch.dtype):
-    """Uninitialised ``(q, has, d_q)`` for a kernel to fill."""
-    return (torch.empty((), dtype=torch.int64, device=dev),
-            torch.empty((), dtype=torch.bool, device=dev),
-            torch.empty((), dtype=dtype, device=dev))
+def select_outputs(dev: torch.device, dtype: torch.dtype, lanes: int | None = None):
+    """Uninitialised ``(q, has, d_q)`` for a kernel to fill: 0-dim, or
+    ``[lanes]``."""
+    shape = () if lanes is None else (lanes,)
+    return (torch.empty(shape, dtype=torch.int64, device=dev),
+            torch.empty(shape, dtype=torch.bool, device=dev),
+            torch.empty(shape, dtype=dtype, device=dev))
 
 
 def select_args(sel: Selection, ws: Workspace, outs) -> SelectArgs:

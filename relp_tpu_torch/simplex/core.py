@@ -44,6 +44,26 @@ invariant check (``check_every_n``) and the row of the per-iteration trace
 
 Artificial variables occupy the virtual columns ``[n, n+m)``; they are
 never materialized: artificial column ``i`` is ``art_sign[i]·e_i``.
+
+**Lanes.**  :func:`solve_core_lanes` solves L same-shape LPs at once, the
+JAX package's ``solve_core(nested=True)`` under ``jax.vmap``
+(``relp_tpu/parallel/batched.py``).  :class:`LanePrimalKernel` is
+:class:`PrimalKernel` with a leading lane axis on every field of the state
+(dense inverse, one shared or a stacked dense operator).  The pivot rules
+are written once, over a leading ``...`` axis (``PrimalKernel._advance``,
+``_restart``, ``_fresh``, ``watchdog``); the lane kernel adds the masks:
+its step merges each field of a lane that is not live from the state it
+was handed, so a lane that is done stops changing, as a lane whose vmapped
+``cond`` is false stops in JAX.
+The pricing passes skip finished lanes inside the kernel
+(``dense_price_select_lanes``, ``dense_price_lanes`` with a live mask), and
+the f64 re-pricing of mixed pricing runs only on the lanes whose f32
+candidate failed its confirmation, without a read.  Refactorization stays
+with the host: every lane that has one pending is refactorized (only
+those), then all step again.  The host reads one stacked tensor of the
+lanes' flags per step, never one per lane; a refactorization adds one or
+two stacked reads, a repair one.  The single solve takes no mask, so its
+launches per iteration do not pay for them.
 """
 
 from __future__ import annotations
@@ -53,8 +73,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from relp_tpu_torch.ops.amatrix import as_amatrix
-from relp_tpu_torch.ops.linalg import inverse_residual, lu_inverse, rank_one_basis_update
+from relp_tpu_torch.ops.amatrix import LaneDenseMatrix, as_amatrix
+from relp_tpu_torch.ops.linalg import (
+    inverse_residual,
+    lu_inverse,
+    rank_one_basis_update,
+    rank_one_basis_update_lanes,
+)
 from relp_tpu_torch.ops.select_epilogue import Selection
 from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.utils.config import SolverConfig
@@ -128,6 +153,32 @@ def _put(x, i, v):
     return x.index_copy_(0, i.reshape(1), v.reshape(1).to(x.dtype))
 
 
+def _take(x, i):
+    """``x[..., i]`` at each leading index: ``x`` ``[..., k]``, ``i`` ``[...]``
+    (one LP: a vector and a 0-dim index; lanes: ``[L, k]`` and ``[L]``)."""
+    return x.gather(-1, i.unsqueeze(-1)).squeeze(-1)
+
+
+def _place_(x, i, v):
+    """``x[..., i] = v`` in place at each leading index (see :func:`_take`)."""
+    return x.scatter_(-1, i.unsqueeze(-1), v.to(x.dtype).unsqueeze(-1))
+
+
+def _col(v):
+    """A per-LP scalar ``[...]`` as ``[..., 1]``, against the LP's vectors."""
+    return v.unsqueeze(-1)
+
+
+def _mv(M, v):
+    """``M @ v`` of one matrix, or of each of a stack ``[L, m, m]``."""
+    return M @ v if M.dim() == 2 else torch.bmm(M, v.unsqueeze(-1)).squeeze(-1)
+
+
+def _vm(v, M):
+    """``v @ M`` of one matrix, or of each of a stack ``[L, m, m]``."""
+    return v @ M if M.dim() == 2 else torch.bmm(v.unsqueeze(-2), M).squeeze(-2)
+
+
 class PrimalKernel:
     """The primal engine over one fixed, padded problem: :meth:`watchdog`,
     :meth:`step`, :meth:`refactor`, :meth:`fold_etas`, :meth:`repair`.
@@ -135,7 +186,11 @@ class PrimalKernel:
 
     Besides the problem it holds the loop's host-side counters: the number
     of steps taken (``steps``, equal to the state's ``it``), the host reads,
-    the periodic check's worst violation and the trace buffers."""
+    the periodic check's worst violation and the trace buffers.
+
+    Its arithmetic is written over a leading ``...`` axis (per-LP scalars
+    ``[...]``, vectors ``[..., k]``, the inverse ``[..., m, m]``), so that
+    :class:`LanePrimalKernel` runs the same rules over L lanes."""
 
     def __init__(self, A, b, c, lb, ub, cfg: SolverConfig, max_iter: int):
         self.A, self.b, self.c, self.lb, self.ub = A, b, c, lb, ub
@@ -143,10 +198,10 @@ class PrimalKernel:
         self.max_iter = max_iter
         self.m, self.n = A.shape
         self.dev = A.device
-        zeros_m = torch.zeros(self.m, dtype=F64, device=self.dev)
-        self.lb_tot = torch.cat([lb, zeros_m])
-        self.ub_tot_p2 = torch.cat([ub, zeros_m])  # artificials pinned to 0 in phase 2
-        self.can_enter = lb < ub                    # fixed + padded columns never enter
+        zeros_m = torch.zeros(lb.shape[:-1] + (self.m,), dtype=F64, device=self.dev)
+        self.lb_tot = torch.cat([lb, zeros_m], -1)
+        self.ub_tot_p2 = torch.cat([ub, zeros_m], -1)  # artificials pinned to 0 in phase 2
+        self.can_enter = lb < ub                        # fixed + padded columns never enter
         self.col_ids = torch.arange(self.n, device=self.dev)
         self.rows_m = torch.arange(self.m, device=self.dev)
         self.use_eta = cfg.inverse == "eta"
@@ -170,8 +225,15 @@ class PrimalKernel:
         self.host_reads += 1
         return t.tolist()
 
+    def _of(self, lanes, *ts):
+        """``ts`` as they are, or their rows ``lanes`` (a lane index tensor)."""
+        return ts if lanes is None else tuple(t[lanes] for t in ts)
+
+    def _matvec(self, x, lanes=None):
+        return self.A.matvec(x) if lanes is None else self.A.matvec(x, lanes)
+
     def art_mass(self, s: State):
-        return torch.where(s.basis >= self.n, s.xB.abs(), 0.0).sum()
+        return torch.where(s.basis >= self.n, s.xB.abs(), 0.0).sum(-1)
 
     def eta0(self) -> dict:
         """An empty pending eta block (nothing for the dense inverse)."""
@@ -184,15 +246,18 @@ class PrimalKernel:
             eta_count=torch.zeros((), dtype=I64, device=self.dev),
         )
 
-    def basis_matrix(self, basis, art_sign):
-        """The m×m basis B: structural columns from A, artificial column
-        ``n + i`` as ``art_sign[i]·e_i``."""
+    def basis_matrix(self, basis, art_sign, lanes=None):
+        """The m×m basis B (``[..., m, m]``): structural columns from A,
+        artificial column ``n + i`` as ``art_sign[i]·e_i``; ``lanes`` names
+        the operator's lanes whose ``basis``/``art_sign`` rows are given."""
         n, m = self.n, self.m
         is_art = basis >= n
-        struct_cols = self.A.cols_matrix(basis.clamp(0, n - 1))
+        cols = basis.clamp(0, n - 1)
+        struct_cols = (self.A.cols_matrix(cols) if lanes is None
+                       else self.A.cols_matrix(cols, lanes))
         k = (basis - n).clamp(0, m - 1)
-        art_cols = (self.rows_m[:, None] == k[None, :]) * art_sign[k][None, :]
-        return torch.where(is_art[None, :], art_cols, struct_cols)
+        art_cols = (self.rows_m[:, None] == k[..., None, :]) * art_sign.gather(-1, k)[..., None, :]
+        return torch.where(is_art[..., None, :], art_cols, struct_cols)
 
     def trace(self) -> torch.Tensor:
         """The recorded trace rows, f32[steps, 8]."""
@@ -202,12 +267,13 @@ class PrimalKernel:
         return torch.cat(self._trace_full + [self._trace_buf[:tail]])
 
     # ---- basis repair: warm phase-1 restart from the artificial basis ----
-    def repair(self, s: State) -> State:
-        """The maintained basis went numerically singular (or a warm basis
-        was infeasible): demote every basic structural column to a nonbasic
-        status, put the artificials back, resume in phase 1 under Bland."""
+    def _restart(self, vstat, repairs, status, lanes=None) -> dict:
+        """The fields of a repaired state: every basic structural column
+        demoted to a nonbasic status, the artificials back, phase 1 under
+        Bland (of the lanes ``lanes`` when given)."""
         n, m = self.n, self.m
-        lb_tot, ub_tot = self.lb_tot, self.ub_tot_p2
+        b, lb, ub, lb_tot, ub_tot = self._of(lanes, self.b, self.lb, self.ub, self.lb_tot,
+                                             self.ub_tot_p2)
         demote = torch.where(
             lb_tot == ub_tot,
             st.NB_FIXED,
@@ -217,29 +283,34 @@ class PrimalKernel:
                 torch.where(torch.isfinite(ub_tot), st.NB_UPPER, st.NB_FREE),
             ),
         )
-        vstat = torch.where(s.vstat == st.BASIC, demote, s.vstat)
-        vstat[n:] = st.BASIC
-        x0 = _nonbasic_values(vstat[:n], self.lb, self.ub)
-        r0 = self.b - self.A.matvec(x0)
+        vstat = torch.where(vstat == st.BASIC, demote, vstat)
+        vstat[..., n:] = st.BASIC
+        x0 = _nonbasic_values(vstat[..., :n], lb, ub)
+        r0 = b - self._matvec(x0, lanes)
         sign = torch.where(r0 >= 0, 1.0, -1.0).to(F64)
-        repairs = s.repairs + 1
-        return dataclasses.replace(
-            s,
-            basis=n + torch.arange(m, device=self.dev),
+        repairs = repairs + 1
+        return dict(
+            basis=(n + self.rows_m).expand(repairs.shape + (m,)),
             vstat=vstat,
             xB=r0.abs(),
-            Binv=torch.diag(sign),
+            Binv=torch.diag_embed(sign),
             pi=sign.clone(),
             art_sign=sign,
-            phase=torch.ones_like(s.phase),
-            since_refactor=torch.zeros_like(s.since_refactor),
-            degen_count=torch.zeros_like(s.degen_count),
-            bland=torch.ones_like(s.bland),
+            phase=torch.ones_like(repairs),
+            since_refactor=torch.zeros_like(repairs),
+            degen_count=torch.zeros_like(repairs),
+            bland=torch.ones_like(repairs, dtype=torch.bool),
             repairs=repairs,
-            status=torch.where(repairs > 3, st.NUMERICAL, s.status),
-            w=torch.ones(n, dtype=F64, device=self.dev),
-            **self.eta0(),
+            status=torch.where(repairs > 3, st.NUMERICAL, status),
+            w=torch.ones(repairs.shape + (n,), dtype=F64, device=self.dev),
         )
+
+    def repair(self, s: State) -> State:
+        """The maintained basis went numerically singular (or a warm basis
+        was infeasible): demote every basic structural column to a nonbasic
+        status, put the artificials back, resume in phase 1 under Bland."""
+        return dataclasses.replace(s, **self._restart(s.vstat, s.repairs, s.status),
+                                   **self.eta0())
 
     # ---- block product-form fold (inverse="eta") ----
     def fold_etas(self, s: State) -> State:
@@ -248,8 +319,30 @@ class PrimalKernel:
         return dataclasses.replace(s, **self.eta0())
 
     # ---- refactorization ----
-    def refactor(self, s: State) -> State:
+    def _fresh(self, Binv, basis, vstat, phase, w, lanes=None) -> dict:
+        """The fields that a new inverse ``Binv`` gives: the basic values and
+        multipliers recomputed from it (residual artificial levels snapped to
+        0), the devex weights reset once they have grown large."""
         cfg, n = self.cfg, self.n
+        b, c, lb_tot, ub_tot = self._of(lanes, self.b, self.c, self.lb_tot, self.ub_tot_p2)
+        is_art = basis >= n
+        nb = _nonbasic_values(vstat, lb_tot, ub_tot)
+        nb = torch.where(vstat == st.BASIC, 0.0, nb)
+        r = b - self._matvec(nb[..., :n], lanes)  # nonbasic artificials sit at 0
+        xB = _mv(Binv, r)
+        phase1 = _col(phase == 1)
+        c_eff = torch.where(phase1, 0.0, c)
+        cB = torch.where(is_art, torch.where(phase1, 1.0, 0.0).to(F64),
+                         c_eff.gather(-1, basis.clamp(0, n - 1)))
+        pi = _vm(cB, Binv)
+        # snap residual artificial levels (<= eps_feas) to exactly 0
+        xB = torch.where(is_art & (xB.abs() <= cfg.eps_feas), 0.0, xB)
+        # devex reference-framework reset once weights have grown large
+        w = torch.where(w.amax(-1, keepdim=True) > 1e6, torch.ones_like(w), w)
+        return dict(Binv=Binv, xB=xB, pi=pi, w=w, since_refactor=torch.zeros_like(phase))
+
+    def refactor(self, s: State) -> State:
+        cfg = self.cfg
         B = self.basis_matrix(s.basis, s.art_sign)
         Binv = None
         if cfg.refactor_mode == "polish":
@@ -270,28 +363,8 @@ class PrimalKernel:
             # NaN-safe: a NaN pivot must route to repair (NaN >= tol is False)
             if not self._read(min_piv >= cfg.singular_tol):
                 return self.repair(s)
-
-        is_art = s.basis >= n
-        nb = _nonbasic_values(s.vstat, self.lb_tot, self.ub_tot_p2)
-        nb = torch.where(s.vstat == st.BASIC, 0.0, nb)
-        r = self.b - self.A.matvec(nb[:n])  # nonbasic artificials sit at 0
-        xB = Binv @ r
-        phase1 = s.phase == 1
-        c_eff = torch.where(phase1, 0.0, self.c)
-        cB = torch.where(
-            is_art,
-            torch.where(phase1, 1.0, 0.0).to(F64),
-            c_eff[s.basis.clamp(0, n - 1)],
-        )
-        pi = cB @ Binv
-        # snap residual artificial levels (<= eps_feas) to exactly 0
-        xB = torch.where(is_art & (xB.abs() <= cfg.eps_feas), 0.0, xB)
-        # devex reference-framework reset once weights have grown large
-        w = torch.where(s.w.max() > 1e6, torch.ones_like(s.w), s.w)
-        return dataclasses.replace(
-            s, Binv=Binv, xB=xB, pi=pi, w=w,
-            since_refactor=torch.zeros_like(s.since_refactor), **self.eta0(),
-        )
+        return dataclasses.replace(s, **self._fresh(Binv, s.basis, s.vstat, s.phase, s.w),
+                                   **self.eta0())
 
     # ---- numerical watchdog ----
     def watchdog(self, s: State):
@@ -300,13 +373,13 @@ class PrimalKernel:
         refactorization (or gives up with NUMERICAL right after one).
         Returns the checked state and the packed loop condition (running,
         refactor due[, fold due]) evaluated as the JAX loop would:
-        ``running`` on the state BEFORE the check."""
+        ``running`` on the state BEFORE the check; ``[..., k]`` over lanes."""
         cfg = self.cfg
         running = (s.status == st.RUNNING) & (s.it < self.max_iter)
-        binv_mag = s.Binv.abs().max()
+        binv_mag = s.Binv.abs().amax((-2, -1))
         if self.use_eta:
             binv_mag = torch.maximum(binv_mag, s.etaZ.abs().max())
-        state_sum = s.xB.sum() + s.pi.sum()
+        state_sum = s.xB.sum(-1) + s.pi.sum(-1)
         broken = (
             ~torch.isfinite(state_sum)
             | ~torch.isfinite(binv_mag)
@@ -322,7 +395,7 @@ class PrimalKernel:
         flags = [running, since >= cfg.refactor_period]
         if self.use_eta:
             flags.append(s.eta_count >= cfg.eta_block)
-        return s, torch.stack(flags)
+        return s, torch.stack(flags, -1)
 
     # ---- one iteration (after watchdog, refactorization and fold) ----
     def _select(self, d, s: State, vs, lo: int = 0):
@@ -346,15 +419,15 @@ class PrimalKernel:
     def _confirm64(self, c_eff, pi, vs, q, has):
         """f64 confirmation of an f32-chosen candidate's reduced cost."""
         eps = self.cfg.eps_dual
-        d_q64 = _at(c_eff, q) - self.A.col_dot(pi, q)
-        vq = _at(vs, q)
+        d_q64 = _take(c_eff, q) - self.A.col_dot(pi, q)
+        vq = _take(vs, q)
         ok = has & (
             torch.where(vq == st.NB_UPPER, d_q64 > eps, d_q64 < -eps)
             | ((vq == st.NB_FREE) & (d_q64.abs() > eps))
         )
         return d_q64, ok
 
-    def _price(self, s: State, c_eff, vs):
+    def _price(self, s: State, c_eff, vs, live=None):
         """Entering column ``(q, has_entering, d_q)``: partial, mixed or f64
         pricing as the config says (JAX core.py:371-439)."""
         A, cfg, n = self.A, self.cfg, self.n
@@ -424,9 +497,10 @@ class PrimalKernel:
         bviol = torch.maximum(torch.maximum(lbv - s.xB, s.xB - ubv), torch.zeros_like(lbv)).max()
         return torch.maximum(row_res, bviol)
 
-    def step(self, s: State):
-        """One pivot, bound flip or no-op.  Returns ``(state, needs_repair)``.
-        Under the dense inverse ``s.Binv`` is updated in place."""
+    def _advance(self, s: State, live=None):
+        """The arithmetic of one pivot, bound flip or no-op: the new state's
+        fields and ``needs_repair``.  ``live`` (lanes only) is the mask of
+        the lanes that step; the kernels skip the others."""
         A, cfg, n, m = self.A, self.cfg, self.n, self.m
         lb, ub, c = self.lb, self.ub, self.c
         lb_tot, ub_tot = self.lb_tot, self.ub_tot_p2
@@ -441,14 +515,14 @@ class PrimalKernel:
         phase = torch.where(transition, 2, s.phase)
         since_refactor = torch.where(transition, period, s.since_refactor)
         phase1 = phase == 1
-        c_eff = torch.where(phase1, 0.0, c)
+        c_eff = torch.where(_col(phase1), 0.0, c)
         pi = s.pi
-        vs = s.vstat[:n]
+        vs = s.vstat[..., :n]
 
-        q, has_entering, d_q = self._price(s, c_eff, vs)
+        q, has_entering, d_q = self._price(s, c_eff, vs, live)
 
         # ---- ratio test ----
-        vq = _at(vs, q)
+        vq = _take(vs, q)
         t = torch.where(
             vq == st.NB_UPPER, -1.0,
             torch.where(vq == st.NB_FREE, -torch.sign(d_q), 1.0),
@@ -457,12 +531,13 @@ class PrimalKernel:
         if use_eta:
             # current inverse = (I + Z·Pᵀ)·Binv → u += Z·u[etaR]
             u = u + s.etaZ @ u.index_select(0, s.etaR)
-        ut = t * u
+        ut = _col(t) * u
 
         k = s.basis
         is_art_k = k >= n
-        lbk = lb_tot[k]
-        ubk = torch.where(is_art_k & phase1, INF, ub_tot[k])  # artificials free upward in phase 1
+        lbk = lb_tot.gather(-1, k)
+        ubk_tot = ub_tot.gather(-1, k)
+        ubk = torch.where(is_art_k & _col(phase1), INF, ubk_tot)  # artificials free upward in phase 1
 
         # Harris two-pass: pass 1 finds the largest step violating no basic
         # bound by more than delta; pass 2 picks the largest |pivot| whose
@@ -474,24 +549,24 @@ class PrimalKernel:
                              torch.where(neg, (s.xB - ubk) / ut, INF)).clamp_min(0.0)
         relaxed = torch.where(pos, (s.xB - lbk + delta) / ut,
                               torch.where(neg, (s.xB - ubk - delta) / ut, INF)).clamp_min(0.0)
-        theta_max = relaxed.min()
-        lbq, ubq = _at(lb, q), _at(ub, q)
+        theta_max = relaxed.amin(-1, keepdim=True)
+        lbq, ubq = _take(lb, q), _take(ub, q)
         bound_range = ubq - lbq
         start_val = torch.where(vq == st.NB_UPPER, ubq,
                                 torch.where(vq == st.NB_LOWER, lbq, 0.0))
 
         aut = ut.abs()
         elig = strict <= theta_max
-        r_stab = torch.argmax(torch.where(elig, aut, -1.0))
+        r_stab = torch.argmax(torch.where(elig, aut, -1.0), -1)
         # Bland mode: smallest basis index among minimal-ratio rows, but never
         # on a relatively tiny pivot
-        elig_b = strict <= strict.min() + cfg.eps_ratio
-        max_piv_b = torch.where(elig_b, aut, 0.0).max()
+        elig_b = strict <= strict.amin(-1, keepdim=True) + cfg.eps_ratio
+        max_piv_b = torch.where(elig_b, aut, 0.0).amax(-1, keepdim=True)
         elig_b = elig_b & (aut >= 0.01 * max_piv_b)
-        r_bland = torch.argmin(torch.where(elig_b, k, n + m))
+        r_bland = torch.argmin(torch.where(elig_b, k, n + m), -1)
         r = torch.where(s.bland, r_bland, r_stab)
 
-        theta_piv = _at(strict, r)
+        theta_piv = _take(strict, r)
         theta = torch.minimum(theta_piv, bound_range)
         can_step = torch.isfinite(theta)
         flip = bound_range < theta_piv
@@ -501,50 +576,52 @@ class PrimalKernel:
         theta_safe = torch.where(can_step, theta, 0.0)
 
         # ---- update (computed unconditionally, selected) ----
-        xB_moved = s.xB - theta_safe * ut
-        xB_piv = _put(xB_moved.clone(), r, start_val + t * theta_safe)
-        p = _at(u, r)
+        xB_moved = s.xB - _col(theta_safe) * ut
+        xB_piv = _place_(xB_moved.clone(), r, start_val + t * theta_safe)
+        p = _take(u, r)
         p_safe = torch.where(p.abs() > 0, p, 1.0)
-        cur_row_r = s.Binv.index_select(0, r.reshape(1))[0]
+        cur_row_r = s.Binv.gather(-2, r[..., None, None].expand(r.shape + (1, m))).squeeze(-2)
         if use_eta:
             # row r of the CURRENT inverse (Binv + pending etas)
             cur_row_r = cur_row_r + s.etaZ.index_select(0, r.reshape(1))[0] @ \
                 s.Binv.index_select(0, s.etaR)
-        w_row = cur_row_r / p_safe
+        w_row = cur_row_r / _col(p_safe)
 
-        kr = _at(k, r)
+        kr = _take(k, r)
         leave_stat = torch.where(
-            _at(lb_tot, kr) == _at(ub_tot, kr),
+            _take(lb_tot, kr) == _take(ub_tot, kr),
             st.NB_FIXED,
-            torch.where(_at(ut, r) > 0, st.NB_LOWER, st.NB_UPPER),
+            torch.where(_take(ut, r) > 0, st.NB_LOWER, st.NB_UPPER),
         )
         flip_stat = torch.where(vq == st.NB_LOWER, st.NB_UPPER, st.NB_LOWER)
-        vstat = s.vstat
-        new_kr_stat = torch.where(is_pivot, leave_stat, _at(vstat, kr))
+        new_kr_stat = torch.where(is_pivot, leave_stat, _take(s.vstat, kr))
         new_q_stat = torch.where(is_pivot, st.BASIC, torch.where(is_flip, flip_stat, vq))
-        vstat = _put(_put(vstat.clone(), kr, new_kr_stat), q, new_q_stat)
+        vstat = _place_(_place_(s.vstat.clone(), kr, new_kr_stat), q, new_q_stat)
 
-        xB_new = torch.where(is_pivot, xB_piv, torch.where(is_flip, xB_moved, s.xB))
-        basis_new = _put(k.clone(), r, torch.where(is_pivot, q, kr))
-        pi_new = torch.where(is_pivot, pi + d_q * w_row, pi)
+        xB_new = torch.where(_col(is_pivot), xB_piv,
+                             torch.where(_col(is_flip), xB_moved, s.xB))
+        basis_new = _place_(k.clone(), r, torch.where(is_pivot, q, kr))
+        pi_new = torch.where(_col(is_pivot), pi + _col(d_q) * w_row, pi)
+        pivots = is_pivot if live is None else is_pivot & live
 
         if cfg.pricing == "devex":
             # devex reference weights (Harris 1973) with the pivot row
             # α = (B⁻¹A)[r,:] in f32 (the weights are heuristic):
             #   w_j ← max(w_j, (α_j/α_q)² w_q),  w_leaving ← max(w_q/α_q², 1)
-            alpha = A.rmatvec32(cur_row_r.float()).to(F64)
+            alpha = (A.rmatvec32(cur_row_r.float()) if live is None
+                     else A.rmatvec32(cur_row_r.float(), pivots)).to(F64)
             inv_p = 1.0 / torch.where(p.abs() > 1e-12, p, 1.0)
-            ratio2 = ((alpha * inv_p) ** 2).clamp_max(1e8)
-            wq = _at(s.w, q).clamp_max(1e8)
-            cand = (ratio2 * wq).clamp_max(1e8)
-            w_upd = _put(torch.maximum(s.w, cand), q, torch.ones_like(wq))
+            ratio2 = ((alpha * _col(inv_p)) ** 2).clamp_max(1e8)
+            wq = _take(s.w, q).clamp_max(1e8)
+            cand = (ratio2 * _col(wq)).clamp_max(1e8)
+            w_upd = _place_(torch.maximum(s.w, cand), q, torch.ones_like(wq))
             kr_in_n = kr.clamp_max(n - 1)
             w_upd = torch.where(
-                self.col_ids == kr_in_n,
-                torch.where(kr < n, (wq * inv_p * inv_p).clamp(1.0, 1e8), w_upd),
+                self.col_ids == _col(kr_in_n),
+                torch.where(_col(kr < n), _col((wq * inv_p * inv_p).clamp(1.0, 1e8)), w_upd),
                 w_upd,
             )
-            w_new = torch.where(is_pivot, w_upd, s.w)
+            w_new = torch.where(_col(is_pivot), w_upd, s.w)
         else:
             w_new = s.w
 
@@ -563,7 +640,10 @@ class PrimalKernel:
             )
         else:
             # B⁻¹ last: the selects above read the pre-pivot inverse
-            rank_one_basis_update(s.Binv, u, r, apply=is_pivot)
+            if live is None:
+                rank_one_basis_update(s.Binv, u, r, apply=is_pivot)
+            else:
+                rank_one_basis_update_lanes(s.Binv, u, r, pivots)
             eta = {}
 
         degen = do_update & (theta_safe <= cfg.eps_zero)
@@ -583,8 +663,9 @@ class PrimalKernel:
         fresh = since_refactor == 0
         wants_terminal = ~has_entering | (has_entering & ~can_step)
         art_ok = art_mass <= 10 * cfg.eps_feas
-        xb_viol = torch.maximum(lb_tot[s.basis] - s.xB, s.xB - ub_tot[s.basis])
-        xb_ok = torch.where(phase1 & (s.basis >= n), 0.0, xb_viol).max() <= 1e3 * cfg.eps_feas
+        xb_viol = torch.maximum(lbk - s.xB, s.xB - ubk_tot)
+        xb_ok = (torch.where(_col(phase1) & is_art_k, 0.0, xb_viol).amax(-1)
+                 <= 1e3 * cfg.eps_feas)
         terminal_status = torch.where(
             phase1, st.INFEASIBLE, torch.where(art_ok, st.OPTIMAL, st.NUMERICAL))
         unb_status = torch.where(phase1, st.NUMERICAL, st.UNBOUNDED)
@@ -622,8 +703,7 @@ class PrimalKernel:
             self._trace_buf[slot] = row
 
         self.steps += 1
-        s_out = dataclasses.replace(
-            s,
+        return dict(
             status=status_new,
             xB=xB_new,
             basis=basis_new,
@@ -640,8 +720,13 @@ class PrimalKernel:
             ),
             it=s.it + 1,
             **eta,
-        )
-        return s_out, needs_repair
+        ), needs_repair
+
+    def step(self, s: State):
+        """One pivot, bound flip or no-op.  Returns ``(state, needs_repair)``.
+        Under the dense inverse ``s.Binv`` is updated in place."""
+        new, needs_repair = self._advance(s)
+        return dataclasses.replace(s, **new), needs_repair
 
 
 def solve_core(
@@ -789,4 +874,225 @@ def solve_core(
         vstat=s.vstat, art_inf=K.art_mass(dataclasses.replace(s, xB=xB)),
         pi=cB @ s.Binv, obj=c @ x, art_sign=s.art_sign, host_reads=K.host_reads,
         trace=K.trace(), viol=K.viol,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Lanes: L same-shape LPs at once (the scenario fleets of parallel/batched.py)
+# ---------------------------------------------------------------------------
+
+
+def _merge(s: State, idx: torch.Tensor, sub: dict) -> State:
+    """``s`` with lanes ``idx`` replaced by ``sub`` (field → ``[k, ...]``);
+    ``Binv`` is written in place, every other field is copied."""
+    fields = {}
+    for name, v in sub.items():
+        if name == "Binv":
+            s.Binv.index_copy_(0, idx, v)
+        else:
+            fields[name] = getattr(s, name).index_copy(0, idx, v.to(getattr(s, name).dtype))
+    return dataclasses.replace(s, **fields)
+
+
+class LanePrimalKernel(PrimalKernel):
+    """:class:`PrimalKernel` over L lanes of one shape: a dense inverse per
+    lane (``Binv`` ``[L, m, m]``, updated in place), one
+    :class:`LaneDenseMatrix` (f32 shadow attached when the config prices in
+    f32), and per-lane ``b``, ``c``, ``lb``, ``ub``.  The pivot rules are
+    :class:`PrimalKernel`'s; here are the masks and the host's choices:
+    :meth:`step` takes the mask of live lanes, :meth:`refactor` and
+    :meth:`repair` the lanes that need them."""
+
+    def __init__(self, A: LaneDenseMatrix, b, c, lb, ub, cfg: SolverConfig, max_iter: int):
+        if cfg.inverse != "dense" or cfg.price_blocks > 1 or cfg.trace_iters or cfg.check_every_n:
+            raise NotImplementedError(
+                "lane-batched primal: inverse='eta', price_blocks > 1, trace_iters and "
+                "check_every_n are not ported for fleets (ROADMAP.md queue 1)")
+        super().__init__(A, b, c, lb, ub, cfg, max_iter)
+        self.L = b.shape[0]
+        self.all_lanes = torch.arange(self.L, device=self.dev)
+        # the selection's outputs, kept across steps: a lane the kernel skips
+        # keeps a valid column index from an earlier step (zeros at first)
+        self._outs = {dt: (torch.zeros(self.L, dtype=I64, device=self.dev),
+                           torch.zeros(self.L, dtype=torch.bool, device=self.dev),
+                           torch.zeros(self.L, dtype=dt, device=self.dev)) for dt in (F32, F64)}
+
+    def repair(self, s: State, idx: torch.Tensor) -> State:
+        """:meth:`PrimalKernel.repair` of lanes ``idx``."""
+        return _merge(s, idx, self._restart(s.vstat[idx], s.repairs[idx], s.status[idx], idx))
+
+    def refactor(self, s: State, idx: torch.Tensor) -> State:
+        """:meth:`PrimalKernel.refactor` of lanes ``idx``: the polish (or
+        LU) of their inverses at once, one stacked read of the residual
+        checks and one of the LU's pivots; lanes with a singular basis are
+        repaired."""
+        cfg, m = self.cfg, self.m
+        basis = s.basis[idx]
+        B = self.basis_matrix(basis, s.art_sign[idx], idx)
+        Binv = None
+        lu = idx
+        if cfg.refactor_mode == "polish":
+            X = s.Binv[idx]
+            eye = torch.eye(m, dtype=F64, device=self.dev)
+            Binv = X @ (2.0 * eye - B @ X)
+            resid = inverse_residual(B, Binv)
+            healthy = self._read(torch.isfinite(resid) & (resid < 1e-9))
+            redo = [j for j, ok in enumerate(healthy) if not ok]
+            lu = torch.tensor(redo, dtype=I64, device=self.dev)
+        bad = []
+        if lu.numel():
+            pos = lu if Binv is not None else None
+            inv, min_piv = lu_inverse(B if pos is None else B[pos])
+            Binv = inv if Binv is None else Binv.index_copy(0, pos, inv)
+            piv_ok = self._read(min_piv >= cfg.singular_tol)
+            # NaN-safe: a NaN pivot must route to repair (NaN >= tol is False)
+            rows = range(len(piv_ok)) if pos is None else pos.tolist()
+            bad = [j for j, ok in zip(rows, piv_ok) if not ok]
+        s = _merge(s, idx, self._fresh(Binv, basis, s.vstat[idx], s.phase[idx], s.w[idx], idx))
+        if bad:
+            s = self.repair(s, idx[torch.tensor(bad, dtype=I64, device=self.dev)])
+        return s
+
+    def _price(self, s: State, c_eff, vs, live):
+        """Every live lane's entering column ``(q, has, d_q)``: the f32 scan
+        with its f64 confirmation and the f64 pass on the lanes whose
+        candidate failed it (mixed pricing), or the f64 pass."""
+        A, cfg = self.A, self.cfg
+        sel = Selection(s.vstat, self.can_enter, s.w, s.bland, cfg.eps_dual,
+                        cfg.pricing == "devex")
+        if not cfg.mixed_pricing:
+            return A.price_select(c_eff, s.pi, sel, live, self._outs[F64])
+        q32, has32, _ = A.price32_select(c_eff.float(), s.pi.float(), sel, live, self._outs[F32])
+        d_q64, confirmed = self._confirm64(c_eff, s.pi, vs, q32, has32)
+        # the lanes whose f32 candidate stands keep it; the f64 pass writes
+        # the others' (q, has, d_q) over it
+        q = q32.clone()
+        return A.price_select(c_eff, s.pi, sel, live & ~confirmed, (q, confirmed, d_q64))
+
+    def step(self, s: State, live: torch.Tensor, keep: State):
+        """One pivot, bound flip or no-op in every live lane (``live`` bool
+        ``[L]``); a lane that is not live takes its fields from ``keep``
+        (the state before the watchdog, which is what a stopped lane hands
+        on).  Returns ``(state, needs_repair)``; ``s.Binv`` is updated in
+        place, live pivoting lanes only."""
+        new, needs_repair = self._advance(s, live)
+        new["broken"] = s.broken
+        out = {name: torch.where(live if v.dim() == 1 else _col(live), v, getattr(keep, name))
+               for name, v in new.items()}
+        return dataclasses.replace(s, **out), needs_repair & live
+
+
+def solve_core_lanes(
+    A, b, c, lb, ub, cfg: SolverConfig, max_iter: int, basis0=None, vstat0=None,
+    art_sign0=None, phase0=None,
+) -> SolveOutput:
+    """Solve L LPs  min c_s@x  s.t.  A_s@x == b_s, lb_s <= x <= ub_s  at once.
+
+    ``A`` is a :class:`LaneDenseMatrix` or a dense tensor, ``[m, n]``
+    (shared by every lane) or ``[L, m, n]``; ``b`` is ``[L, m]``, ``c``,
+    ``lb``, ``ub`` ``[L, n]``, all f64 on ``A``'s device and padded as for
+    :func:`solve_core`.  Warm start per lane: ``basis0`` ``[L, m]``,
+    ``vstat0`` ``[L, n]``, optionally ``art_sign0`` ``[L, m]`` and ``phase0``
+    (``[L]`` or one int).  Every lane takes the steps its own
+    :func:`solve_core` call would take.  Returns a :class:`SolveOutput`
+    whose fields carry a leading lane axis (``trace`` has no rows,
+    ``host_reads`` counts the stacked reads of the whole batch)."""
+    A = A if isinstance(A, LaneDenseMatrix) else LaneDenseMatrix(torch.as_tensor(A))
+    L = b.shape[0]
+    m, n = A.shape
+    dev = A.device
+    if cfg.mixed_pricing or cfg.pricing == "devex":
+        A = A.with_f32()
+    K = LanePrimalKernel(A, b, c, lb, ub, cfg, max_iter)
+
+    def lanes_of(v, dtype=I64):
+        return torch.full((L,), v, dtype=dtype, device=dev)
+
+    common = dict(
+        status=lanes_of(st.RUNNING), it=lanes_of(0), degen_count=lanes_of(0),
+        bland=lanes_of(cfg.pricing == "bland", torch.bool), repairs=lanes_of(0),
+        w=torch.ones((L, n), dtype=F64, device=dev), broken=lanes_of(False, torch.bool),
+    )
+    if basis0 is None:
+        # ---- cold start: all-artificial basis in every lane ----
+        vstat0_n = torch.where(
+            lb == ub, st.NB_FIXED,
+            torch.where(torch.isfinite(lb), st.NB_LOWER,
+                        torch.where(torch.isfinite(ub), st.NB_UPPER, st.NB_FREE)))
+        vstat_full = torch.cat(
+            [vstat0_n, torch.full((L, m), st.BASIC, dtype=I64, device=dev)], 1)
+        r0 = b - A.matvec(_nonbasic_values(vstat_full[:, :n], lb, ub))
+        art_sign = torch.where(r0 >= 0, 1.0, -1.0).to(F64)
+        s = State(
+            basis=(n + K.rows_m).expand(L, m).clone(), vstat=vstat_full, xB=r0.abs(),
+            Binv=torch.diag_embed(art_sign), pi=art_sign.clone(), art_sign=art_sign,
+            phase=lanes_of(1), since_refactor=lanes_of(0), **common)
+    else:
+        vstat_full = torch.cat([
+            torch.as_tensor(vstat0, device=dev).long(),
+            torch.full((L, m), st.NB_LOWER, dtype=I64, device=dev)], 1)
+        if art_sign0 is not None:
+            art_sign = torch.as_tensor(art_sign0, device=dev).to(F64)
+        else:
+            x0w = _nonbasic_values(vstat_full[:, :n], lb, ub)
+            x0w = torch.where(vstat_full[:, :n] == st.BASIC, 0.0, x0w)
+            art_sign = torch.where(b - A.matvec(x0w) >= 0, 1.0, -1.0).to(F64)
+        phase = (lanes_of(1) if phase0 is None
+                 else torch.as_tensor(phase0, device=dev).long().expand(L).clone())
+        s = State(
+            basis=torch.as_tensor(basis0, device=dev).long().clone(), vstat=vstat_full,
+            xB=torch.zeros((L, m), dtype=F64, device=dev),
+            Binv=torch.eye(m, dtype=F64, device=dev).repeat(L, 1, 1),
+            pi=torch.zeros((L, m), dtype=F64, device=dev), art_sign=art_sign, phase=phase,
+            since_refactor=lanes_of(cfg.refactor_period), **common)
+
+    def lanes_of_true(bits):
+        hit = [i for i, bit in enumerate(bits) if bit]
+        return torch.tensor(hit, dtype=I64, device=dev) if hit else None
+
+    # ---- the host loop: one stacked read of every lane's flags per step ----
+    final = s
+    s, flags = K.watchdog(final)
+    host = K._read(flags)
+    while any(run for run, _ in host):
+        due = lanes_of_true([run and ref for run, ref in host])
+        if due is not None:
+            s = K.refactor(s, due)
+        final, needs_repair = K.step(s, flags[:, 0].contiguous(), final)
+        s, flags = K.watchdog(final)
+        host = K._read(torch.cat([needs_repair[:, None], flags], 1))
+        repair = lanes_of_true([row[0] for row in host])
+        host = [row[1:] for row in host]
+        if repair is not None:
+            final = K.repair(final, repair)
+            s, flags = K.watchdog(final)
+            host = K._read(flags)
+
+    s = dataclasses.replace(
+        final, status=torch.where(final.status == st.RUNNING, st.ITERATION_LIMIT, final.status))
+    s = K.refactor(s, K.all_lanes)  # clean final refactorization for extraction
+
+    # one step of iterative refinement on every lane's basic solution
+    lb_tot, ub_tot = K.lb_tot, K.ub_tot_p2
+    B_f = K.basis_matrix(s.basis, s.art_sign)
+    nb = _nonbasic_values(s.vstat, lb_tot, ub_tot)
+    nb = torch.where(s.vstat == st.BASIC, 0.0, nb)
+    r_f = b - A.matvec(nb[:, :n])
+    resid = r_f - torch.bmm(B_f, s.xB.unsqueeze(-1)).squeeze(-1)
+    xB = s.xB + torch.bmm(s.Binv, resid.unsqueeze(-1)).squeeze(-1)
+
+    # ---- extract every lane's solution vector ----
+    x_pad = torch.zeros((L, n + 1), dtype=F64, device=dev)
+    x_pad[:, :n] = nb[:, :n]
+    structural = s.basis < n
+    x_pad.scatter_(1, torch.where(structural, s.basis, n), torch.where(structural, xB, 0.0))
+    x = x_pad[:, :n]
+    cB = torch.where(s.basis >= n, 0.0, c.gather(1, s.basis.clamp(0, n - 1)))
+    return SolveOutput(
+        x=x, status=s.status, it=s.it, phase=s.phase, basis=s.basis, vstat=s.vstat,
+        art_inf=K.art_mass(dataclasses.replace(s, xB=xB)),
+        pi=torch.bmm(cB.unsqueeze(1), s.Binv).squeeze(1), obj=(c * x).sum(1),
+        art_sign=s.art_sign, host_reads=K.host_reads,
+        trace=torch.zeros((L, 0, 8), dtype=F32, device=dev),
+        viol=torch.zeros(L, dtype=F64, device=dev),
     )

@@ -29,6 +29,15 @@ K's diagonal; an unhealthy direction leaves the state as it was and raises
 δ, and both shrink with μ.  Termination: relative primal and dual
 infeasibility and duality gap below ``tol``.
 
+Lanes: ``_factor``, ``_solve_normal``, ``_step_math``, ``ipm_chunk`` (with
+``k_max=1``) and ``ls_start`` also take a fleet, the JAX package's
+``jax.vmap`` of them over the scenario axis with the operator shared
+(``driver._solve_fleet_ipm``): every vector with a leading lane axis, the
+per-lane scalars (δ, ρ, the finite-bound count, the KKT reference) as
+``[L]`` tensors, ``A64``/``Afac`` one ``[m, n]`` matrix.  The normal
+matrices of all lanes are one batched product into ``[L, m, m]`` and one
+batched ``cholesky_ex``, NaN in a lane whose ``info != 0``.
+
 Differences from the JAX package: ``panel_matvec``/``panel_vecmat`` (limb
 buffers of the TPU's f64 emulation) are plain products; ``ipm_chunk``'s
 device loop is a host loop over a straight-line step whose health policy is
@@ -70,11 +79,26 @@ class IpmDiag(NamedTuple):
     ir_err: torch.Tensor    # worst normal-equation refinement residual (rel)
 
 
+def _c(t):
+    """A per-lane scalar ``[L]`` as a column ``[L, 1]`` against ``[L, k]``
+    vectors; a 0-dim tensor or a number as it is."""
+    return t.unsqueeze(-1) if torch.is_tensor(t) and t.dim() else t
+
+
+def _Ax(A, x):
+    """``A·x`` of one vector, or of every lane's (``x`` ``[L, n]``)."""
+    return A @ x if x.dim() == 1 else x @ A.T
+
+
+def _dot(a, b):
+    return a @ b if a.dim() == 1 else (a * b).sum(-1)
+
+
 def _max_step(s, ds, mask):
     """Largest α ∈ (0,1] with s + α·ds ≥ 0 on the masked entries."""
     blocking = mask & (ds < 0)
     ratios = torch.where(blocking, -s / torch.where(blocking, ds, -1.0), torch.inf)
-    return torch.clamp(ratios.min(), max=1.0)
+    return torch.clamp(ratios.amin(-1), max=1.0)
 
 
 def _factor(Afac, d, delta, fdt):
@@ -86,14 +110,15 @@ def _factor(Afac, d, delta, fdt):
     factor gives a NaN factor, as the JAX package's does: the caller's health
     policy rejects the direction it produces."""
     w = torch.sqrt(d).to(Afac.dtype)
-    B = Afac * w[None, :]
-    K = (B @ B.T).to(fdt)
-    K.diagonal().add_(torch.as_tensor(delta, dtype=F64, device=K.device).to(fdt))
-    dg = K.diagonal()
+    B = Afac * w[..., None, :]
+    K = (B @ B.mT).to(fdt)
+    K.diagonal(dim1=-2, dim2=-1).add_(
+        _c(torch.as_tensor(delta, dtype=F64, device=K.device).to(fdt)))
+    dg = K.diagonal(dim1=-2, dim2=-1)
     js = torch.where(dg > 0, 1.0 / torch.sqrt(torch.where(dg > 0, dg, 1.0)), 1.0)
-    Ks = K * js[:, None] * js[None, :]
+    Ks = K * js[..., :, None] * js[..., None, :]
     L, info = torch.linalg.cholesky_ex(Ks)
-    L = torch.where(info == 0, L, torch.nan)
+    L = torch.where(info[..., None, None] == 0, L, torch.nan)
     return L, js
 
 
@@ -102,12 +127,13 @@ def _solve_normal(L, js, A64, d, delta, rhs, n_ir):
     ``n_ir`` steps of f64 iterative refinement against the exact operator.
     Returns ``(t, rel_resid)``."""
     fdt = L.dtype
+    delta = _c(delta)
 
     def apply_K(v):
-        return A64 @ (d * (v @ A64)) + delta * v
+        return _Ax(A64, d * (v @ A64)) + delta * v
 
     def precond(r):
-        z = torch.cholesky_solve((js * r).to(fdt)[:, None], L)[:, 0]
+        z = torch.cholesky_solve((js * r).to(fdt)[..., None], L)[..., 0]
         return (js * z).to(F64)
 
     t = precond(rhs)
@@ -115,8 +141,8 @@ def _solve_normal(L, js, A64, d, delta, rhs, n_ir):
     for _ in range(n_ir):
         t = t + precond(r)
         r = rhs - apply_K(t)
-    scale = torch.clamp(rhs.abs().max(), min=1e-30)
-    return t, r.abs().max() / scale
+    scale = torch.clamp(rhs.abs().amax(-1), min=1e-30)
+    return t, r.abs().amax(-1) / scale
 
 
 def _step_math(A64, Afac, b, c, lbf, ubf, hl, hu, dmask,
@@ -133,18 +159,18 @@ def _step_math(A64, Afac, b, c, lbf, ubf, hl, hu, dmask,
     sl = torch.where(hl > 0, x - lbf, 1.0)
     su = torch.where(hu > 0, ubf - x, 1.0)
 
-    r_p = b - A64 @ x
+    r_p = b - _Ax(A64, x)
     r_d = (c - y @ A64 - zl + zu) * dmask
-    mu = ((hl * sl * zl).sum() + (hu * su * zu).sum()) / nb
+    mu = ((hl * sl * zl).sum(-1) + (hu * su * zu).sum(-1)) / nb
 
-    dinv = hl * zl / sl + hu * zu / su + rho
+    dinv = hl * zl / sl + hu * zu / su + _c(rho)
     d = dmask / dinv
 
     L, js = _factor(Afac, d, delta, fdt)
 
     def direction(rcl, rcu, ir_acc):
         g = r_d - hl * rcl / sl + hu * rcu / su
-        h = r_p + A64 @ (d * g)
+        h = r_p + _Ax(A64, d * g)
         dy, ir = _solve_normal(L, js, A64, d, delta, h, n_ir)
         dx = d * (dy @ A64 - g)
         dzl = hl * (rcl - zl * dx) / sl
@@ -157,37 +183,40 @@ def _step_math(A64, Afac, b, c, lbf, ubf, hl, hu, dmask,
     hl_on, hu_on = hl > 0, hu > 0
     ap = torch.minimum(_max_step(sl, dx_a, hl_on), _max_step(su, -dx_a, hu_on))
     ad = torch.minimum(_max_step(zl, dzl_a, hl_on), _max_step(zu, dzu_a, hu_on))
-    mu_aff = ((hl * (sl + ap * dx_a) * (zl + ad * dzl_a)).sum()
-              + (hu * (su - ap * dx_a) * (zu + ad * dzu_a)).sum()) / nb
+    apc, adc = _c(ap), _c(ad)
+    mu_aff = ((hl * (sl + apc * dx_a) * (zl + adc * dzl_a)).sum(-1)
+              + (hu * (su - apc * dx_a) * (zu + adc * dzu_a)).sum(-1)) / nb
     sigma = torch.clamp((mu_aff / mu) ** 3, 1e-8, 1.0)
 
     # -- corrector: recentre to σμ and cancel the affine second-order term
-    rcl = sigma * mu - sl * zl - dx_a * dzl_a
-    rcu = sigma * mu - su * zu + dx_a * dzu_a
+    smu = _c(sigma * mu)
+    rcl = smu - sl * zl - dx_a * dzl_a
+    rcu = smu - su * zu + dx_a * dzu_a
     dx, dy, dzl, dzu, ir_err = direction(rcl, rcu, ir1)
 
     ap = gamma * torch.minimum(_max_step(sl, dx, hl_on), _max_step(su, -dx, hu_on))
     ad = gamma * torch.minimum(_max_step(zl, dzl, hl_on), _max_step(zu, dzu, hu_on))
 
-    x1 = x + ap * dx
-    y1 = y + ad * dy
-    zl1 = zl + ad * dzl
-    zu1 = zu + ad * dzu
+    apc, adc = _c(ap), _c(ad)
+    x1 = x + apc * dx
+    y1 = y + adc * dy
+    zl1 = zl + adc * dzl
+    zu1 = zu + adc * dzu
 
     # -- diagnostics at the new point (what the host loop steers on) --
     sl1 = torch.where(hl > 0, x1 - lbf, 1.0)
     su1 = torch.where(hu > 0, ubf - x1, 1.0)
     aty1 = y1 @ A64
-    r_p1 = b - A64 @ x1
+    r_p1 = b - _Ax(A64, x1)
     r_d1 = (c - aty1 - zl1 + zu1) * dmask
-    mu1 = ((hl * sl1 * zl1).sum() + (hu * su1 * zu1).sum()) / nb
-    pobj = c @ x1
+    mu1 = ((hl * sl1 * zl1).sum(-1) + (hu * su1 * zu1).sum(-1)) / nb
+    pobj = _dot(c, x1)
     # fixed columns (dmask=0, padded ones included) enter the dual objective
     # with their exact multiplier c_j − a_jᵀy
-    dobj = (b @ y1 + (hl * lbf * zl1).sum() - (hu * ubf * zu1).sum()
-            + ((1.0 - dmask) * (c - aty1) * x1).sum())
-    rp_rel = r_p1.abs().max() / (1.0 + b.abs().max())
-    rd_rel = r_d1.abs().max() / (1.0 + c.abs().max())
+    dobj = (_dot(b, y1) + (hl * lbf * zl1).sum(-1) - (hu * ubf * zu1).sum(-1)
+            + ((1.0 - dmask) * (c - aty1) * x1).sum(-1))
+    rp_rel = r_p1.abs().amax(-1) / (1.0 + b.abs().amax(-1))
+    rd_rel = r_d1.abs().amax(-1) / (1.0 + c.abs().amax(-1))
     gap_rel = (pobj - dobj).abs() / (1.0 + pobj.abs() + dobj.abs())
 
     diag = IpmDiag(mu=mu1, rp=rp_rel, rd=rd_rel, gap=gap_rel, pobj=pobj, dobj=dobj,
@@ -221,17 +250,21 @@ def ipm_chunk(A64, Afac, b, c, lbf, ubf, hl, hu, dmask,
     one commits and lets δ/ρ shrink with μ.  ``kkt_ref`` seeds the relative
     gate.  Between two steps the host reads one flag (KKT ≤ tol, or 3
     consecutive unhealthy retries, ends the chunk); a chunk of one step
-    reads nothing.  The best committed point is tracked on the device."""
+    reads nothing.  The best committed point is tracked on the device.
+    A fleet (vectors ``[L, k]``) takes one step per chunk (``k_max=1``)."""
     dev = b.device
     f64 = dict(dtype=F64, device=dev)
+    lead = tuple(b.shape[:-1])
+    if lead and k_max != 1:
+        raise ValueError("ipm_chunk: a fleet takes k_max=1 (one step a lane per chunk)")
     delta = torch.as_tensor(delta, **f64)
     rho = torch.as_tensor(rho, **f64)
     kkt_ref = torch.as_tensor(kkt_ref, **f64)
-    committed = torch.zeros((), dtype=torch.int64, device=dev)
-    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    committed = torch.zeros(lead, dtype=torch.int64, device=dev)
+    bad = torch.zeros(lead, dtype=torch.int64, device=dev)
     best_x, best_y = state.x, state.y
-    best_kkt = torch.full((), torch.inf, **f64)
-    diag = IpmDiag(*([torch.full((), torch.nan, **f64)] * len(IpmDiag._fields)))
+    best_kkt = torch.full(lead, torch.inf, **f64)
+    diag = IpmDiag(*([torch.full(lead, torch.nan, **f64)] * len(IpmDiag._fields)))
     for attempt in range(k_max):
         new_state, new_diag = _step_math(A64, Afac, b, c, lbf, ubf, hl, hu, dmask,
                                          state, delta, rho, nb, gamma, fdt, n_ir)
@@ -239,7 +272,7 @@ def ipm_chunk(A64, Afac, b, c, lbf, ubf, hl, hu, dmask,
         healthy = (torch.isfinite(new_diag.mu) & torch.isfinite(kkt)
                    & (new_diag.ir_err < 1e-2)
                    & (new_diag.ir_err < torch.clamp(0.03 * kkt_ref, min=1e-13)))
-        state = IpmState(*(torch.where(healthy, new, old)
+        state = IpmState(*(torch.where(_c(healthy), new, old)
                            for new, old in zip(new_state, state)))
         delta = torch.where(
             healthy,
@@ -258,8 +291,8 @@ def ipm_chunk(A64, Afac, b, c, lbf, ubf, hl, hu, dmask,
         bad = torch.where(healthy, 0, bad + 1)
         committed = committed + healthy.long()
         improved = healthy & (kkt < best_kkt)
-        best_x = torch.where(improved, state.x, best_x)
-        best_y = torch.where(improved, state.y, best_y)
+        best_x = torch.where(_c(improved), state.x, best_x)
+        best_y = torch.where(_c(improved), state.y, best_y)
         best_kkt = torch.where(improved, kkt, best_kkt)
         kkt_ref = torch.where(healthy, kkt, kkt_ref)
         diag = IpmDiag(*(torch.where(healthy, new, old) for new, old in zip(new_diag, diag)))
@@ -281,10 +314,10 @@ def ls_start(A64, Afac, b, c, lbf, ubf, hl, hu, dmask, xfix, fdt, n_ir):
     delta0 = 1e-6
     L, js = _factor(Afac, dmask.to(Afac.dtype), delta0, fdt)
 
-    r0 = b - A64 @ xfix
+    r0 = b - _Ax(A64, xfix)
     t, _ = _solve_normal(L, js, A64, dmask, delta0, r0, n_ir)
     xt = xfix + dmask * (t @ A64)
-    yt, _ = _solve_normal(L, js, A64, dmask, delta0, A64 @ (dmask * c), n_ir)
+    yt, _ = _solve_normal(L, js, A64, dmask, delta0, _Ax(A64, dmask * c), n_ir)
     zt = c - yt @ A64
 
     # interior shift: margin 1 in Ruiz-scaled space for one-sided bounds;

@@ -123,6 +123,11 @@ class SolverConfig:
     pdlp_precision: str = "auto"
     # most refinement zooms of the mixed-precision stage (0 = none)
     pdlp_refine: int = 4
+    # fleets (solve_general_forms_batched): warm-start every scenario from one
+    # base solve of the first — HiGHS on the host for the first-order fleet,
+    # the single-solve driver for the simplex fleet on a shared A — whose wall
+    # is inside the fleet's
+    pdlp_fleet_warm: bool = True
     # interior point: iterate until the relative KKT (max of primal and dual
     # infeasibility and duality gap) reaches ipm_tol; on a stall accept the
     # best point iff it is <= ipm_accept, else fall back to the primal;

@@ -20,8 +20,12 @@ from relp_tpu_torch.models.dense import dense_lp, dense_lp_data
 from relp_tpu_torch.models.networks import max_flow_lp, random_arcs
 from relp_tpu_torch.ops.dense_kernels import (
     dense_price,
+    dense_price_lanes,
+    dense_price_lanes_plain,
     dense_price_plain,
     dense_price_select,
+    dense_price_select_lanes,
+    dense_price_select_lanes_plain,
     dense_price_select_plain,
 )
 from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
@@ -398,3 +402,94 @@ def test_dual_on_the_card_reaches_the_max_flow(cuda, tmp_path):
         assert res.solution.objective_value == pytest.approx(flow, abs=1e-6)
         assert met.engine == ("dual-lu" if opts.get("xl_engine") else "dual")
         assert met.device == "cuda"
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("L,m,n,j0,w", [(64, 768, 1536, 0, None), (5, 100, 1000, 3, 517),
+                                         (3, 256, 512, 0, None)])
+def test_dense_price_lanes_matches_plain_and_single_launches(cuda, dtype, tol, stacked,
+                                                             L, m, n, j0, w):
+    rng = np.random.default_rng(11)
+    shape = (L, m, n) if stacked else (m, n)
+    A = torch.as_tensor(rng.uniform(-1, 1, shape), dtype=dtype, device=cuda)
+    width = n - j0 if w is None else w
+    V = torch.as_tensor(rng.standard_normal((L, m)), dtype=dtype, device=cuda)
+    C = torch.as_tensor(rng.standard_normal((L, width)), dtype=dtype, device=cuda)
+    for c in (C, None):
+        got = dense_price_lanes(A, V, c, j0, w)
+        want = dense_price_lanes_plain(A, V, c, j0, w)
+        assert float((got - want).abs().max()) <= tol * (1 + float(want.abs().max()))
+        # lane s is the single-vector launch on lane s's data, bit for bit
+        for s in (0, L - 1):
+            one = dense_price(A[s] if stacked else A, V[s].contiguous(),
+                              None if c is None else c[s].contiguous(), j0, w)
+            assert torch.equal(got[s], one)
+        assert torch.equal(got, dense_price_lanes(A, V, c, j0, w))
+    live = torch.as_tensor(rng.random(L) < 0.5, device=cuda)
+    out = torch.full((L, width), 7.0, dtype=dtype, device=cuda)
+    got = dense_price_lanes(A, V, C, j0, w, live=live, out=out.clone())
+    want = dense_price_lanes_plain(A, V, C, j0, w, live, out)
+    assert torch.equal(got[~live], out[~live])
+    assert float((got - want).abs().max()) <= tol * (1 + float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("devex,stacked", [(True, False), (False, True)])
+def test_dense_price_select_lanes_matches_plain_version(cuda, dtype, tol, devex, stacked):
+    rng = np.random.default_rng(12)
+    L, m, n = 16, 300, 1100
+    A = torch.as_tensor(rng.uniform(-1, 1, (L, m, n) if stacked else (m, n)), dtype=dtype,
+                        device=cuda)
+    V = torch.as_tensor(rng.standard_normal((L, m)), dtype=dtype, device=cuda)
+    C = torch.as_tensor(rng.standard_normal((L, n)), dtype=dtype, device=cuda)
+    vstat = torch.as_tensor(rng.integers(0, 4, (L, n + m)), device=cuda)
+    can = torch.as_tensor(rng.random((L, n)) < 0.9, device=cuda)
+    wts = torch.as_tensor(rng.uniform(0.5, 2.0, (L, n)), device=cuda)
+    bland = torch.as_tensor(rng.random(L) < 0.3, device=cuda)
+    args = (vstat, can, wts, bland, 1e-7, devex)
+    q, has, d_q = dense_price_select_lanes(A, V, C, *args)
+    q0, has0, d0 = dense_price_select_lanes_plain(A, V, C, *args)
+    assert torch.equal(q, q0) and torch.equal(has, has0)
+    assert float((d_q - d0).abs().max()) <= tol * (1 + float(d0.abs().max()))
+    for s in range(L):  # each lane is the single-vector selection
+        one = dense_price_select(A[s] if stacked else A, V[s].contiguous(), C[s].contiguous(),
+                                 vstat[s].contiguous(), can[s].contiguous(),
+                                 wts[s].contiguous(), bland[s], 1e-7, devex)
+        assert int(one[0]) == int(q[s]) and bool(one[1]) == bool(has[s])
+        assert torch.equal(one[2], d_q[s])
+    live = torch.as_tensor(rng.random(L) < 0.5, device=cuda)
+    keep = (torch.full((L,), -1, dtype=torch.int64, device=cuda),
+            torch.zeros(L, dtype=torch.bool, device=cuda),
+            torch.zeros(L, dtype=dtype, device=cuda))
+    outs = tuple(t.clone() for t in keep)
+    dense_price_select_lanes(A, V, C, *args, live=live, outs=outs)
+    assert torch.equal(outs[0][~live], keep[0][~live])
+    assert torch.equal(outs[0][live], q[live])
+
+
+@pytest.mark.parametrize("algorithm", ["primal", "ipm", "pdlp"])
+def test_fleets_on_the_card_match_the_cpu(cuda, algorithm):
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.simplex.driver import solve_general_forms_batched
+
+    def fleet():
+        out = []
+        rng = np.random.default_rng(20260819)
+        for s in range(4):
+            g = dense_lp(32, 64)
+            g.b = g.b * (1.0 + 0.03 * rng.standard_normal(len(g.b)))
+            out.append(g)
+        return out
+
+    cfg = SolverConfig(algorithm=algorithm, presolve=False)
+    launches = dense_price_lanes.launches
+    on_card = solve_general_forms_batched(fleet(), cfg, device="cuda")
+    # the primal's devex rows and the first-order fleet's C − Y·A go through
+    # the lane kernel; the interior point's products are batched GEMMs
+    assert (dense_price_lanes.launches > launches) == (algorithm != "ipm")
+    on_cpu = solve_general_forms_batched(fleet(), cfg, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.kind == b.kind
+        assert a.solution.objective_value == pytest.approx(b.solution.objective_value,
+                                                           rel=1e-6)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of relp_tpu_torch's iterations goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual|ipm] [--nodes 4096]
-                                         [--iters 600] [--out FILE] [--crossover]
+    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual|ipm|
+                                                    fleet-primal|fleet-pdlp|fleet-ipm]
+                                         [--nodes 4096] [--iters 600] [--out FILE]
+                                         [--crossover]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
 LP of ``--nodes`` nodes on the ELL operator, or the dense LP at 768 × 1536 on
@@ -31,6 +33,22 @@ only), then a profiled run without crossover: kernel time, launches and
 host reads per interior-point iteration, the heaviest kernels, and the device
 time under ``aten::mm`` (the GEMM, and the vector-matrix products ``v @ A``),
 the Cholesky, its solves and ``aten::mv`` (the products ``A @ x``).
+
+``--problem fleet-{primal,pdlp,ipm}`` takes one of ``chip_smoke.py``'s
+fleets through ``solve_general_forms_batched``: the lane-batched primal on
+64 scenarios of the dense LP at 256 × 512 (warm from one base solve), the
+first-order fleet on 16 perturbed max flows at N = 1,024 (``--nodes`` from
+1,024 down), the interior-point fleet on bench.py's DENSE-768x1536 with 64
+scenarios.  A warm-up, a run timed by parts on the host clock (synchronised:
+the base solve and the lane loop; the scaling, the warm point, the PDHG
+calls and the cleanup; the scaling, ``_factor`` and ``ipm_chunk``), then a
+profiled run — of the lane loop alone for the primal fleet (the base solve
+is a single solve, profiled by ``--problem dense``), of the whole call
+otherwise: wall, batched iterations, kernel time, launches and host reads
+per batched iteration, the busy share of the profiled wall, the heaviest
+kernels and the lane kernels' share.  ``--iters`` caps the first-order
+fleet's PDHG iterations (whole calls of 8 rounds of 256; the lanes left
+go to HiGHS, which the parts show).
 """
 
 from __future__ import annotations
@@ -345,10 +363,138 @@ def profile_ipm(args, smi) -> list[str]:
     return lines
 
 
+FLEET_PARTS = {
+    "fleet-primal": (("driver", "solve_computational_form"), ("batched", "solve_core_lanes")),
+    "fleet-pdlp": (("driver", "_fleet_ruiz"), ("driver", "_fleet_highs"),
+                   ("pdhg", "solve_pdhg_chunk"), ("driver", "_fleet_cleanup")),
+    "fleet-ipm": (("driver", "_fleet_ruiz"), ("primal_dual", "ls_start"),
+                  ("primal_dual", "_factor"), ("primal_dual", "ipm_chunk"),
+                  ("driver", "_fleet_cleanup")),
+}
+
+
+def profile_fleet(args, smi) -> list[str]:
+    """One of chip_smoke.py's fleets through solve_general_forms_batched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from relp_tpu_torch.fom import pdhg
+    from relp_tpu_torch.ops import dense_kernels
+    from relp_tpu_torch.parallel import batched
+    from relp_tpu_torch.simplex import driver, primal_dual
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    modules = {"driver": driver, "batched": batched, "pdhg": pdhg, "primal_dual": primal_dual}
+    kind = args.problem.split("-", 1)[1]
+    if kind == "primal":
+        m, n = cs.FLEET_PRIMAL_SHAPE
+        make = lambda: cs._fleet_generals(m, n, cs.FLEET_LANES, demand=False)  # noqa: E731
+        name, config = f"{m}x{n} (costs moved)", SolverConfig(presolve=False)
+    elif kind == "pdlp":
+        cs.FLEET_FLOW_NODES = min(args.nodes, cs.FLEET_FLOW_NODES)
+        make, name = (lambda: cs._flow_fleet()[0]), f"max-flow N={cs.FLEET_FLOW_NODES}"
+        config = SolverConfig(algorithm="pdlp", presolve=False, max_iter=args.iters)
+    else:
+        m, n = cs.DENSE_SHAPE
+        make, name = (lambda: cs._fleet_generals(m, n, cs.FLEET_LANES)), f"DENSE-{m}x{n}"
+        config = SolverConfig(algorithm="ipm", presolve=False)
+    spent: dict[str, list] = {}
+
+    def timed(label, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                entry = spent.setdefault(label, [0.0, 0])
+                entry[0] += time.perf_counter() - t0
+                entry[1] += 1
+        return wrapper
+
+    def run():
+        generals = make()
+        stats = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        driver.solve_general_forms_batched(generals, config, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, stats[0]
+
+    run()  # warm-up: kernel build, library handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    wall, info = run()
+    peak = torch.cuda.max_memory_allocated()
+    its = max(info["iterations"], 1)
+    originals = {(mod, fn): getattr(modules[mod], fn) for mod, fn in FLEET_PARTS[args.problem]}
+    for (mod, fn), orig in originals.items():
+        setattr(modules[mod], fn, timed(fn, orig))
+    try:
+        parts_wall, _ = run()
+    finally:
+        for (mod, fn), orig in originals.items():
+            setattr(modules[mod], fn, orig)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    if kind == "primal":
+        # the lane loop alone, under the profiler
+        lanes_fn = batched.solve_core_lanes
+
+        def profiled(*a, **k):
+            with prof:
+                t0 = time.perf_counter()
+                out = lanes_fn(*a, **k)
+                torch.cuda.synchronize()
+            spent["profiled lane loop"] = [time.perf_counter() - t0, 1]
+            return out
+
+        batched.solve_core_lanes = profiled
+        try:
+            run()
+        finally:
+            batched.solve_core_lanes = lanes_fn
+        prof_wall = spent["profiled lane loop"][0]
+    else:
+        with prof:
+            prof_wall, _ = run()
+    avgs = prof.key_averages()
+    attr = _device_attr(avgs[0])
+    kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+    busy_us = sum(getattr(a, attr) for a in kernels)
+    launches = sum(a.count for a in kernels)
+    lane_us = sum(getattr(a, attr) for a in kernels if "dense_price_kernel" in a.key)
+    lines = [
+        f"[profile] fleet {kind} {name}: {info['lanes']} lanes of {info['shape'][0]}x"
+        f"{info['shape'][1]}, engine {info['engine']}, {info['iterations']} batched "
+        f"iterations, host reads {info['host_reads']} ({info['host_reads'] / its:.3f}/iter); "
+        f"wall {wall:.3f} s unprofiled ({info['lanes'] / wall:.2f} LPs/s; engine group "
+        f"{info['wall_s']:.3f} s = {info['wall_s'] / its * 1e3:.3f} ms/iter); peak memory "
+        f"{peak / 2**20:.0f} MiB; {info} [{smi}]",
+        f"[profile]   parts (host clock, synchronised; run of {parts_wall:.3f} s): "
+        + "; ".join(f"{k} {v[0]:.3f} s in {v[1]} calls" for k, v in spent.items()),
+        f"[profile]   profiled {prof_wall:.3f} s: kernel time {busy_us / 1e3:.2f} ms = "
+        f"{busy_us / its:.1f} us/iter, busy share {busy_us / 1e6 / prof_wall:.4f}, launches "
+        f"{launches / its:.1f}/iter; dense_price_kernel (the lane kernels) "
+        f"{lane_us / its:.1f} us/iter, {lane_us / max(busy_us, 1e-9):.3f} of kernel time; "
+        f"dense_price_lanes {dense_kernels.dense_price_lanes.launches}, "
+        f"dense_price_select_lanes {dense_kernels.dense_price_select_lanes.launches} launches "
+        "over the four runs",
+    ]
+    for a in sorted(kernels, key=lambda a: getattr(a, attr), reverse=True)[:8]:
+        lines.append(f"[profile]   kernel {getattr(a, attr) / its:9.2f} us/iter "
+                     f"{a.count / its:7.2f} launches/iter  {a.key[:90]}")
+    if args.out:
+        lines.append(avgs.table(sort_by=attr, row_limit=40))
+        lines.append(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp", "dual", "ipm"),
-                    default="maxflow")
+    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp", "dual", "ipm",
+                                          *FLEET_PARTS), default="maxflow")
     ap.add_argument("--nodes", type=int, default=4096, help="size of the max-flow graph")
     ap.add_argument("--iters", type=int, default=600)
     ap.add_argument("--out", help="file for the full profiler tables")
@@ -376,9 +522,9 @@ def main(argv=None) -> int:
     from relp_tpu_torch.utils.config import SolverConfig
 
     smi = chip_smoke.phase_device()
-    if args.problem in ("pdlp", "dual", "ipm"):
-        lines = {"pdlp": profile_pdlp, "dual": profile_dual, "ipm": profile_ipm}[args.problem](
-            args, smi)
+    if args.problem in ("pdlp", "dual", "ipm", *FLEET_PARTS):
+        profilers = {"pdlp": profile_pdlp, "dual": profile_dual, "ipm": profile_ipm}
+        lines = profilers.get(args.problem, profile_fleet)(args, smi)
         shown = [line for line in lines if line.startswith("[profile]")]
         print("\n".join(shown))
         if args.out:
