@@ -26,12 +26,14 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              pass with the entering column chosen in the kernel) on the two
              operators with the state of a solve cut at 600 iterations, and
              on made-up ties; the lane kernels ``dense_price_lanes`` (with
-             and without ``c``) for 64 lanes against the dense LP's shared
-             operator, 16 lanes against the N = 1,024 max flow's dense
-             operator (the first-order fleet's) and a stacked A[4, 256, 512],
-             and ``dense_price_select_lanes`` on the state of a lane-batched
-             solve cut mid-way, each lane also held bit for bit against the
-             single-vector kernel on its data.  Each pricing kernel and
+             and without ``c``) for 64 and for 17 lanes (a ragged last group;
+             also with a partly dead group and a whole dead one) against the
+             dense LP's shared operator, 16 lanes against the N = 1,024 max
+             flow's dense operator (the first-order fleet's) and a stacked
+             A[4, 256, 512], and ``dense_price_select_lanes`` on the state of
+             a lane-batched solve cut mid-way (and with dead lanes), each
+             lane also held bit for bit against the single-vector kernel on
+             its data, each row naming the lanes a block served.  Each pricing kernel and
              ``ell_spmv`` is run twice and must give the same bits.  Device time per launch (CUDA events over
              batches of 50 launches) beside the plain version's, the bound
              (the bytes the call must move at 3.35 TB/s, or its operations
@@ -196,6 +198,7 @@ FLEET_LANES = 64        # bench.py's DENSE fleet: 64 scenarios
 FLEET_PRIMAL_SHAPE = (256, 512)
 FLEET_FLOW_LANES = 16
 FLEET_FLOW_NODES = 1024
+RAGGED_LANES = 17       # a lane count that leaves the last group of lanes ragged
 # NVIDIA's H100 SXM data sheet: device memory rate, the float32 rate outside
 # the tensor cores, and the float64 rate on them (the larger of the two
 # float64 rates, 34 TFLOP/s outside them): a bound is the least time the card
@@ -758,18 +761,34 @@ def _mid_lane_state(dev, iters):
     return seen[0], torch.as_tensor(A, dtype=torch.float32, device=dev)
 
 
+def _lanes_equal_single(got, A, V, C, stacked, live=None):
+    """Whether every (live) lane of a ``dense_price_lanes`` result equals the
+    single-vector ``dense_price`` on that lane's data, bit for bit."""
+    import torch
+
+    from relp_tpu_torch.ops.dense_kernels import dense_price
+
+    return all(
+        torch.equal(got[s], dense_price(A[s] if stacked else A, V[s].contiguous(),
+                                        None if C is None else C[s].contiguous()))
+        for s in range(V.shape[0]) if live is None or bool(live[s]))
+
+
 def _kernels_lanes(smi, dev, rng, dense_op):
     """The lane kernels against their plain versions: ``dense_price_lanes``
-    for 64 lanes against the dense LP's shared operator and 16 against the
-    N = 1,024 max flow's dense operator (f32 and f64, with and without
-    ``C``), for a stacked A[4, 256, 512]; ``dense_price_select_lanes`` on a
-    lane-batched solve's state.  Each lane is also held bit for bit against
-    the single-vector kernel on its data."""
+    for 64 lanes against the dense LP's shared operator, 17 against it (a
+    ragged last group; also with a partly dead group and a whole dead one)
+    and 16 against the N = 1,024 max flow's dense operator (f32 and f64,
+    with and without ``C``), for a stacked A[4, 256, 512];
+    ``dense_price_select_lanes`` on a lane-batched solve's state.  Each lane
+    is also held bit for bit against the single-vector kernel on its data,
+    and each row prints the lanes a block served (``lane_plan``'s group; 1:
+    lane by lane)."""
     import torch
 
     from relp_tpu_torch.ops.dense_kernels import (
-        dense_price, dense_price_lanes, dense_price_lanes_plain, dense_price_select,
-        dense_price_select_lanes, dense_price_select_lanes_plain,
+        dense_price_lanes, dense_price_lanes_plain, dense_price_select,
+        dense_price_select_lanes, dense_price_select_lanes_plain, lane_plan,
     )
 
     general, _ = slice_problem(FLEET_FLOW_NODES)
@@ -778,6 +797,9 @@ def _kernels_lanes(smi, dev, rng, dense_op):
         f"dense LP operator shared by {FLEET_LANES} lanes m={dense_op.shape[0]} "
         f"n={dense_op.shape[1]}":
             (dense_op.A, FLEET_LANES),
+        f"dense LP operator shared by {RAGGED_LANES} lanes m={dense_op.shape[0]} "
+        f"n={dense_op.shape[1]}":
+            (dense_op.A, RAGGED_LANES),
         f"max-flow N={FLEET_FLOW_NODES} dense operator shared by {FLEET_FLOW_LANES} lanes "
         f"m={flow_A.shape[0]} n={flow_A.shape[1]}": (flow_A, FLEET_FLOW_LANES),
         "stacked A[4, 256, 512]": (torch.as_tensor(rng.uniform(0.05, 1.0, (4, 256, 512)),
@@ -792,6 +814,7 @@ def _kernels_lanes(smi, dev, rng, dense_op):
             V = torch.as_tensor(rng.uniform(0.0, 1.0, (L, m)), dtype=dtype, device=dev)
             C = torch.as_tensor(rng.uniform(0.0, 1.0, (L, w)), dtype=dtype, device=dev)
             stacked = Ad.dim() == 3
+            group = lane_plan(L, m, w, Ad.element_size(), not stacked).group
             if stacked:
                 lib_c = (lambda: torch.baddbmm(C.unsqueeze(1), V.unsqueeze(1), Ad, alpha=-1),
                          "torch.baddbmm(C, V, A, alpha=-1)")
@@ -802,22 +825,41 @@ def _kernels_lanes(smi, dev, rng, dense_op):
             common = dict(flops=2 * L * m * w, tag=tag, same_bits=True)
             for mode, Cm, lib in (("c", C, lib_c), ("sum", None, lib_s)):
                 row = _compare(
-                    f"dense_price_lanes {tag} {'C-VA' if Cm is not None else 'VA'} {label} L={L}",
+                    f"dense_price_lanes {tag} {'C-VA' if Cm is not None else 'VA'} {label} L={L} "
+                    f"group {group}",
                     lambda: dense_price_lanes(Ad, V, Cm),
                     lambda: dense_price_lanes_plain(Ad, V, Cm), tol, smi,
                     nbytes=_nbytes(Ad, V, Cm, Cm if Cm is not None else C),
                     library_fn=lib[0], library=lib[1], **common)
-                got = dense_price_lanes(Ad, V, Cm)
-                if not all(
-                    torch.equal(got[s], dense_price(Ad[s] if stacked else Ad, V[s].contiguous(),
-                                                    None if Cm is None else Cm[s].contiguous()))
-                    for s in range(L)
-                ):
+                if not _lanes_equal_single(dense_price_lanes(Ad, V, Cm), Ad, V, Cm, stacked):
                     raise AssertionError(f"[kernels] dense_price_lanes {tag} {label}: a lane "
                                          "differs from the single-vector dense_price")
                 print(f"[kernels]   each of the {L} lanes equals the single-vector dense_price "
                       "bit for bit")
                 report[(tag, mode, label)] = row
+            if L != RAGGED_LANES:
+                continue
+            # dead lanes: two of the first group, and the whole ragged last group
+            live = torch.ones(L, dtype=torch.bool, device=dev)
+            live[1:3] = False
+            live[(L - 1) // group * group:] = False
+            n_live = int(live.sum())
+            kept = torch.full((L, w), 7.0, dtype=dtype, device=dev)
+            out = kept.clone()
+            report[(tag, "dead", label)] = _compare(
+                f"dense_price_lanes {tag} C-VA {label} L={L} group {group}, lanes 1-2 and the "
+                f"last group dead ({n_live} live)",
+                lambda: dense_price_lanes(Ad, V, C, live=live, out=out),
+                lambda: dense_price_lanes_plain(Ad, V, C, live=live, out=kept), tol, smi,
+                nbytes=_nbytes(Ad) + n_live * (m + 2 * w) * Ad.element_size(),
+                flops=2 * n_live * m * w, tag=tag, library_fn=lib_c[0], library=lib_c[1])
+            got = dense_price_lanes(Ad, V, C, live=live, out=out)
+            if not (torch.equal(got[~live], kept[~live])
+                    and _lanes_equal_single(got, Ad, V, C, stacked, live)):
+                raise AssertionError(f"[kernels] dense_price_lanes {tag} {label}: a dead lane "
+                                     "was written, or a live one differs from dense_price")
+            print(f"[kernels]   the {L - n_live} dead lanes kept their rows; each live lane "
+                  "equals the single-vector dense_price bit for bit")
 
     (sel, V32, C32, live), A32 = _mid_lane_state(dev, MID_SOLVE_ITERS // 6)
     L = V32.shape[0]
@@ -827,9 +869,10 @@ def _kernels_lanes(smi, dev, rng, dense_op):
     side = 17 * n * L  # vstat (8), can_enter (1) and w (8) per column and lane
     for tag, tol, A, v, c in (("f32", F32_TOL, A32, V32, C32),
                               ("f64", F64_TOL, A32.double(), V32.double(), C32.double())):
+        group = lane_plan(L, m, n, A.element_size()).group
         scale = float((v.abs() @ A.abs()).max())
         row = _compare(
-            f"dense_price_select_lanes {tag} {L} lanes of {m}x{n}, mid-solve state",
+            f"dense_price_select_lanes {tag} {L} lanes of {m}x{n}, mid-solve state, group {group}",
             lambda: dense_price_select_lanes(A, v, c, *sel),
             lambda: dense_price_select_lanes_plain(A, v, c, *sel), tol, smi,
             nbytes=_nbytes(A, v, c) + side, flops=2 * L * m * n, tag=tag, same_bits=True,
@@ -845,8 +888,22 @@ def _kernels_lanes(smi, dev, rng, dense_op):
                                            sel.devex)]):
             raise AssertionError(f"[kernels] dense_price_select_lanes {tag}: a lane differs "
                                  "from the single-vector dense_price_select")
+        # dead lanes: two of the first group and the whole second one keep their outputs
+        alive = torch.ones(L, dtype=torch.bool, device=dev)
+        alive[1:3] = False
+        alive[group:2 * group] = False
+        kept = (torch.full((L,), -1, dtype=torch.int64, device=dev),
+                torch.zeros(L, dtype=torch.bool, device=dev),
+                torch.full((L,), 9.0, dtype=A.dtype, device=dev))
+        outs = dense_price_select_lanes(A, v, c, *sel, live=alive,
+                                        outs=tuple(t.clone() for t in kept))
+        if not all(torch.equal(o[~alive], k[~alive]) and torch.equal(o[alive], f[alive])
+                   for o, k, f in zip(outs, kept, (q, has, d_q))):
+            raise AssertionError(f"[kernels] dense_price_select_lanes {tag}: a dead lane was "
+                                 "written, or a live one differs from the full launch")
         print("[kernels]   each lane's (q, has, d_q) equals the single-vector "
-              "dense_price_select's bit for bit")
+              "dense_price_select's bit for bit; dead lanes (part of a group, a whole group) "
+              "kept their outputs")
         report[(tag, "select")] = row
     flow_label = next(k for k in cases if k.startswith("max-flow"))
     # the fleets' launches: the first-order fleet's f32 C − Y·A at N = 1,024,

@@ -43,11 +43,11 @@ SIGNATURES = {
     "relp_ell_spmv_f64": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
     # dense_kernels.cu: A, v, c, out, partial, counters, m, lda, j0, w, slices,
     # rows_per_slice, SelectArgs* (null: write out), LaneArgs* (null: one
-    # vector), lanes, stream
+    # vector), lanes, lanes a block serves (ops/dense_kernels.py: lane_plan), stream
     "relp_dense_price_f32": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P,
-                             _P, _I32, _P],
+                             _P, _I32, _I32, _P],
     "relp_dense_price_f64": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P,
-                             _P, _I32, _P],
+                             _P, _I32, _I32, _P],
     # probe_kernels.cu: x, out, n, stream
     "relp_probe_scale_f32": [_P, _P, _I64, _P],
     "relp_probe_scale_f64": [_P, _P, _I64, _P],

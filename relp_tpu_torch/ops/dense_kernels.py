@@ -18,13 +18,16 @@ kernel.
 (``ops/select_epilogue.py``): the entering column ``(q, has, d_q)`` comes
 out of the kernel and ``d`` is never written.
 
-``dense_price_lanes`` and ``dense_price_select_lanes`` are the same kernel
-over L lanes (the iterates of a fleet, one per scenario) against one shared
-``A[m, n]`` or a stacked ``A[L, m, n]``: one launch, a third grid dimension
-of lanes, each lane with the plan, the code and the sum order of a
+``dense_price_lanes`` and ``dense_price_select_lanes`` price L lanes (the
+iterates of a fleet, one per scenario) in one launch, against a stacked
+``A[L, m, n]`` (the kernel above, a third grid dimension of lanes) or one
+shared ``A[m, n]``: there a block reads each tile of A once for a group of
+4, 8 or 16 lanes (:func:`lane_plan`), so A is read once per group and not
+once per lane.  Each lane keeps the row plan and the order of sums of a
 single-vector launch, so lane ``s`` equals ``dense_price(A_s, V[s], C[s])``
-bit for bit.  A bool mask ``live[L]`` lets finished lanes cost nothing;
-their outputs are left as they were (pass ``out``/``outs`` to keep them).
+bit for bit.  A bool mask ``live[L]`` lets finished lanes cost nothing (a
+group with none live returns at once); their outputs are left as they were
+(pass ``out``/``outs`` to keep them).
 
 A wrapper given CPU tensors computes the plain PyTorch version.  Given CUDA
 tensors it launches the kernel or raises: there is no fallback.  Each
@@ -34,7 +37,8 @@ wrapper counts its launches in a plain integer attribute, ``launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,7 +57,10 @@ from relp_tpu_torch.ops.sparse_kernels import window
 _FLOATS = (torch.float32, torch.float64)
 _WARPS = 8            # warps of a kernel block, which split its rows (csrc kWarps)
 _MIN_SLICE_ROWS = 16 * _WARPS  # at least sixteen rows a warp: four rounds of loads
-_TARGET_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
+_SMS = 132            # an H100's SMs
+_TARGET_BLOCKS = 2 * _SMS  # two blocks per SM
+_GROUPS = (16, 8, 4)  # lanes a block of the group kernel may serve (csrc G)
+_GROUP_COST = 6       # what a block's fixed work weighs, in lanes' worth of FMAs
 
 
 def dense_price_plain(A: torch.Tensor, v: torch.Tensor, c: Optional[torch.Tensor] = None,
@@ -98,6 +105,51 @@ def slices_for(m: int, w: int, itemsize: int = 4) -> tuple[int, int]:
     return max(1, -(-m // rows)), rows
 
 
+class LanePlan(NamedTuple):
+    """How one launch covers ``L`` lanes: blocks of ``group`` lanes (1: the
+    lane-by-lane kernel) in ``groups`` grid rows, each lane's rows in
+    ``slices`` of ``rows_per_slice`` (the single launch's plan), and the
+    scratch it takes from the stream's workspace."""
+
+    group: int
+    groups: int
+    slices: int
+    rows_per_slice: int
+    col_blocks: int
+    n_counters: int     # a ticket per lane, then the column blocks' counters
+    n_slots: int        # one selection slot per lane and column block
+    partial_bytes: int  # per lane and slice, a row of sums (whole blocks in a group)
+
+
+def lane_group(lanes: int, blocks_per_group: int, shared: bool = True) -> int:
+    """Lanes a block serves: 1 for one vector or a stacked A (nothing is
+    shared).  Else 16 or 8 where ``lanes`` fills such a group and the grid
+    still gives every SM a block, and 4 otherwise; among those, the one
+    whose groups cost least, a group weighing its lanes (padding included)
+    and a fixed ``_GROUP_COST`` (``tools/sweep_torch_pricing.py --only
+    lanes`` measures the choice)."""
+    if lanes < 2 or not shared:
+        return 1
+    fits = [g for g in _GROUPS
+            if g == _GROUPS[-1] or (lanes >= g and -(-lanes // g) * blocks_per_group >= _SMS)]
+    return min(fits, key=lambda g: (-(-lanes // g) * (g + _GROUP_COST), -g))
+
+
+@functools.lru_cache(maxsize=256)
+def lane_plan(lanes: int, m: int, w: int, itemsize: int, shared: bool = True) -> LanePlan:
+    """The launch plan of ``lanes`` lanes over an ``m``-row window of ``w``
+    columns (one vector: ``lanes=1``).  The rows are split as
+    :func:`slices_for` splits them for one vector, whatever the group."""
+    slices, rows = slices_for(m, w, itemsize)
+    col_blocks = max(1, -(-w // block_cols(itemsize)))
+    group = lane_group(lanes, col_blocks * slices, shared)
+    groups = -(-lanes // group)
+    counters = (lanes if group == 1 else groups) * col_blocks if slices > 1 else 0
+    row = w if group == 1 else col_blocks * block_cols(itemsize)
+    return LanePlan(group, groups, slices, rows, col_blocks, lanes + counters,
+                    lanes * col_blocks, lanes * slices * row * itemsize if slices > 1 else 0)
+
+
 def _launch(name, A, v, c, j0, w, out, sel, outs, n_lanes=1, lanes=None):
     """One launch of the kernel: ``out`` (a tensor) or the selection, for
     one vector or ``n_lanes`` lanes (``lanes``: their ``LaneArgs``)."""
@@ -106,25 +158,21 @@ def _launch(name, A, v, c, j0, w, out, sel, outs, n_lanes=1, lanes=None):
     lib = load_kernels().lib
     dev = A.device
     m, n = A.shape[-2:]
-    itemsize = A.element_size()
-    slices, rows = slices_for(m, w, itemsize)
-    col_blocks = -(-w // block_cols(itemsize))
+    plan = lane_plan(n_lanes, m, w, A.element_size(), A.dim() == 2)
     fn = lib.relp_dense_price_f32 if A.dtype == torch.float32 else lib.relp_dense_price_f64
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ws = None
-        if slices > 1 or sel is not None:
-            # per lane: a ticket, then the column blocks' counters and slots
-            ws = workspace(dev, stream, n_lanes * (1 + col_blocks), n_lanes * col_blocks,
-                           n_lanes * slices * w * itemsize if slices > 1 else 0)
+        if plan.slices > 1 or sel is not None:
+            ws = workspace(dev, stream, plan.n_counters, plan.n_slots, plan.partial_bytes)
         args = None if sel is None else ctypes.byref(select_args(sel, ws, outs))
         err = fn(
             A.data_ptr(), v.data_ptr(), None if c is None else c.data_ptr(),
             None if out is None else out.data_ptr(),
-            ws.partial.data_ptr() if slices > 1 else None,
-            ws.counters_ptr(n_lanes) if slices > 1 else None,
-            m, n, j0, w, slices, rows, args,
-            None if lanes is None else ctypes.byref(lanes), n_lanes, stream,
+            ws.partial.data_ptr() if plan.slices > 1 else None,
+            ws.counters_ptr(n_lanes) if plan.slices > 1 else None,
+            m, n, j0, w, plan.slices, plan.rows_per_slice, args,
+            None if lanes is None else ctypes.byref(lanes), n_lanes, plan.group, stream,
         )
     if err != 0:
         drop_workspace(dev, stream)

@@ -117,7 +117,8 @@ class Workspace:
     """Scratch of the kernels on one stream.  A launch of L lanes (1 for
     one vector) takes ``counters[:L]`` as the selections' tickets, one a
     lane, and ``counters[L:]`` as ``dense_price``'s per-column-block
-    counters, lane after lane; all are zero between launches."""
+    counters, lane after lane (group after group when lanes share A:
+    ``dense_kernels.lane_plan``); all are zero between launches."""
 
     def __init__(self, dev, n_counters: int, n_slots: int, partial_bytes: int):
         self.counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)

@@ -27,6 +27,7 @@ from relp_tpu_torch.ops.dense_kernels import (
     dense_price_select_lanes,
     dense_price_select_lanes_plain,
     dense_price_select_plain,
+    lane_plan,
 )
 from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
 from relp_tpu_torch.ops.sparse_kernels import (
@@ -404,10 +405,24 @@ def test_dual_on_the_card_reaches_the_max_flow(cuda, tmp_path):
         assert met.device == "cuda"
 
 
+def _dead_lanes(L, group, rng, dev):
+    """A live mask that kills part of the first group of lanes and, where
+    there are several groups, the whole last one."""
+    live = torch.as_tensor(rng.random(L) < 0.7, device=dev)
+    live[0] = True
+    if L > 1:
+        live[1] = False
+    groups = -(-L // group)
+    if groups > 1:
+        live[(groups - 1) * group:] = False
+    return live
+
+
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("stacked", [False, True])
-@pytest.mark.parametrize("L,m,n,j0,w", [(64, 768, 1536, 0, None), (5, 100, 1000, 3, 517),
-                                         (3, 256, 512, 0, None)])
+@pytest.mark.parametrize("L,m,n,j0,w", [(64, 768, 1536, 0, None), (17, 300, 1100, 3, 517),
+                                         (5, 100, 1000, 3, 517), (3, 256, 512, 0, None),
+                                         (1, 256, 512, 3, 200)])
 def test_dense_price_lanes_matches_plain_and_single_launches(cuda, dtype, tol, stacked,
                                                              L, m, n, j0, w):
     rng = np.random.default_rng(11)
@@ -416,56 +431,69 @@ def test_dense_price_lanes_matches_plain_and_single_launches(cuda, dtype, tol, s
     width = n - j0 if w is None else w
     V = torch.as_tensor(rng.standard_normal((L, m)), dtype=dtype, device=cuda)
     C = torch.as_tensor(rng.standard_normal((L, width)), dtype=dtype, device=cuda)
+    plan = lane_plan(L, m, width, A.element_size(), not stacked)
+    assert (plan.group == 1) == (stacked or L == 1)  # lanes that share A go in groups
     for c in (C, None):
         got = dense_price_lanes(A, V, c, j0, w)
         want = dense_price_lanes_plain(A, V, c, j0, w)
         assert float((got - want).abs().max()) <= tol * (1 + float(want.abs().max()))
-        # lane s is the single-vector launch on lane s's data, bit for bit
-        for s in (0, L - 1):
+        # every lane is the single-vector launch on its data, bit for bit
+        for s in range(L):
             one = dense_price(A[s] if stacked else A, V[s].contiguous(),
                               None if c is None else c[s].contiguous(), j0, w)
-            assert torch.equal(got[s], one)
-        assert torch.equal(got, dense_price_lanes(A, V, c, j0, w))
-    live = torch.as_tensor(rng.random(L) < 0.5, device=cuda)
+            assert torch.equal(got[s], one), s
+        assert torch.equal(got, dense_price_lanes(A, V, c, j0, w))  # two launches, same bits
+    live = _dead_lanes(L, plan.group, rng, cuda)
     out = torch.full((L, width), 7.0, dtype=dtype, device=cuda)
     got = dense_price_lanes(A, V, C, j0, w, live=live, out=out.clone())
     want = dense_price_lanes_plain(A, V, C, j0, w, live, out)
     assert torch.equal(got[~live], out[~live])
+    assert torch.equal(got[live], dense_price_lanes(A, V, C, j0, w)[live])
     assert float((got - want).abs().max()) <= tol * (1 + float(want.abs().max()))
+    dead = torch.zeros(L, dtype=torch.bool, device=cuda)
+    assert torch.equal(dense_price_lanes(A, V, C, j0, w, live=dead, out=out.clone()), out)
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("devex,stacked", [(True, False), (False, True)])
-def test_dense_price_select_lanes_matches_plain_version(cuda, dtype, tol, devex, stacked):
+@pytest.mark.parametrize("devex,stacked", [(True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("L,j0,w_cols", [(16, 0, None), (64, 0, None), (17, 3, 517),
+                                          (5, 0, None), (3, 3, 517), (1, 0, None)])
+def test_dense_price_select_lanes_matches_plain_version(cuda, dtype, tol, devex, stacked,
+                                                        L, j0, w_cols):
     rng = np.random.default_rng(12)
-    L, m, n = 16, 300, 1100
+    m, n = 300, 1100
+    width = n - j0 if w_cols is None else w_cols
     A = torch.as_tensor(rng.uniform(-1, 1, (L, m, n) if stacked else (m, n)), dtype=dtype,
                         device=cuda)
     V = torch.as_tensor(rng.standard_normal((L, m)), dtype=dtype, device=cuda)
-    C = torch.as_tensor(rng.standard_normal((L, n)), dtype=dtype, device=cuda)
+    C = torch.as_tensor(rng.standard_normal((L, width)), dtype=dtype, device=cuda)
     vstat = torch.as_tensor(rng.integers(0, 4, (L, n + m)), device=cuda)
     can = torch.as_tensor(rng.random((L, n)) < 0.9, device=cuda)
     wts = torch.as_tensor(rng.uniform(0.5, 2.0, (L, n)), device=cuda)
     bland = torch.as_tensor(rng.random(L) < 0.3, device=cuda)
-    args = (vstat, can, wts, bland, 1e-7, devex)
+    args = (vstat, can, wts, bland, 1e-7, devex, j0, w_cols)
     q, has, d_q = dense_price_select_lanes(A, V, C, *args)
     q0, has0, d0 = dense_price_select_lanes_plain(A, V, C, *args)
     assert torch.equal(q, q0) and torch.equal(has, has0)
     assert float((d_q - d0).abs().max()) <= tol * (1 + float(d0.abs().max()))
-    for s in range(L):  # each lane is the single-vector selection
+    again = dense_price_select_lanes(A, V, C, *args)  # two launches, same bits
+    assert all(torch.equal(a, b) for a, b in zip((q, has, d_q), again))
+    for s in range(L):  # each lane is the single-vector selection, bit for bit
         one = dense_price_select(A[s] if stacked else A, V[s].contiguous(), C[s].contiguous(),
                                  vstat[s].contiguous(), can[s].contiguous(),
-                                 wts[s].contiguous(), bland[s], 1e-7, devex)
+                                 wts[s].contiguous(), bland[s], 1e-7, devex, j0, w_cols)
         assert int(one[0]) == int(q[s]) and bool(one[1]) == bool(has[s])
         assert torch.equal(one[2], d_q[s])
-    live = torch.as_tensor(rng.random(L) < 0.5, device=cuda)
+    plan = lane_plan(L, m, width, A.element_size(), not stacked)
+    live = _dead_lanes(L, plan.group, rng, cuda)
     keep = (torch.full((L,), -1, dtype=torch.int64, device=cuda),
             torch.zeros(L, dtype=torch.bool, device=cuda),
-            torch.zeros(L, dtype=dtype, device=cuda))
-    outs = tuple(t.clone() for t in keep)
-    dense_price_select_lanes(A, V, C, *args, live=live, outs=outs)
-    assert torch.equal(outs[0][~live], keep[0][~live])
-    assert torch.equal(outs[0][live], q[live])
+            torch.full((L,), 9.0, dtype=dtype, device=cuda))
+    outs = dense_price_select_lanes(A, V, C, *args, live=live,
+                                    outs=tuple(t.clone() for t in keep))
+    for got, kept, full in zip(outs, keep, (q, has, d_q)):
+        assert torch.equal(got[~live], kept[~live])
+        assert torch.equal(got[live], full[live])
 
 
 @pytest.mark.parametrize("algorithm", ["primal", "ipm", "pdlp"])

@@ -464,7 +464,8 @@ def profile_fleet(args, smi) -> list[str]:
     kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
     busy_us = sum(getattr(a, attr) for a in kernels)
     launches = sum(a.count for a in kernels)
-    lane_us = sum(getattr(a, attr) for a in kernels if "dense_price_kernel" in a.key)
+    lane_us = sum(getattr(a, attr) for a in kernels
+                  if "dense_price_kernel" in a.key or "dense_price_group_kernel" in a.key)
     lines = [
         f"[profile] fleet {kind} {name}: {info['lanes']} lanes of {info['shape'][0]}x"
         f"{info['shape'][1]}, engine {info['engine']}, {info['iterations']} batched "
@@ -476,7 +477,8 @@ def profile_fleet(args, smi) -> list[str]:
         + "; ".join(f"{k} {v[0]:.3f} s in {v[1]} calls" for k, v in spent.items()),
         f"[profile]   profiled {prof_wall:.3f} s: kernel time {busy_us / 1e3:.2f} ms = "
         f"{busy_us / its:.1f} us/iter, busy share {busy_us / 1e6 / prof_wall:.4f}, launches "
-        f"{launches / its:.1f}/iter; dense_price_kernel (the lane kernels) "
+        f"{launches / its:.1f}/iter; dense_price_kernel and dense_price_group_kernel (the lane "
+        "kernels) "
         f"{lane_us / its:.1f} us/iter, {lane_us / max(busy_us, 1e-9):.3f} of kernel time; "
         f"dense_price_lanes {dense_kernels.dense_price_lanes.launches}, "
         f"dense_price_select_lanes {dense_kernels.dense_price_select_lanes.launches} launches "

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Sweep the launch shapes of relp_tpu_torch's pricing and A·x kernels on one NVIDIA GPU.
 
-    python3 tools/sweep_torch_pricing.py [--out FILE] [--only dense|ell|spmv] [--package-root DIR]
+    python3 tools/sweep_torch_pricing.py [--out FILE] [--only dense|ell|spmv|lanes]
+                                         [--package-root DIR]
 
 ``dense_price`` and ``ell_price`` take their grids from a few constants of
 their wrappers (``ops/dense_kernels.py``: blocks aimed at, fewest rows of a
@@ -14,7 +15,14 @@ call on the same inputs.  ``ell_spmv`` takes its launch shape from
 ``sparse_kernels.spmv_plan``; the sweep puts every shape (segments of a row
 ∈ {1, 2, 4, 8, 16} × row threads of a block × 1 or 4 rows a thread) in its
 place in turn, holds each against the plain version, and prints the plan's
-own choice last.  With ``--package-root DIR`` the package is taken from another
+own choice last.  The lane kernels (``dense_price_lanes``,
+``dense_price_select_lanes`` against a shared A) take the lanes a block
+serves from ``dense_kernels.lane_group``; the sweep puts 1 (lane by lane),
+4, 8 and 16 in its place in turn, under each depth of the group kernel's
+ring of rows in flight (``RELP_DENSE_GROUP_STAGES``), at chip_smoke.py's
+lane shapes, holds
+every group size to the same bits, and prints ``lane_plan``'s own choice
+beside ``addmm``.  With ``--package-root DIR`` the package is taken from another
 checkout (an earlier commit unpacked beside this one), and where that one's
 ``ell_spmv`` has no plan to sweep its one launch shape is timed alone, so the
 two can be compared within one run.  The constants in the repository are the ones this sweep
@@ -91,11 +99,80 @@ def sweep_spmv(say, us, rng, dev):
             say(f"[sweep] spmv {tag} spmv_plan's choice {tuple(plan)}: {run(plan):.2f} us")
 
 
+LANE_SHAPES = (  # label, lanes, m, n: chip_smoke.py's lane rows
+    ("64 x 768x1536", 64, 768, 1536),
+    ("17 x 768x1536", 17, 768, 1536),
+    ("16 x 1024x8192", 16, 1024, 8192),
+)
+
+
+def sweep_lanes(say, us, rng, dev, build):
+    """The lane kernels under every group size and ring depth: each
+    group size must give the bits of the lane-by-lane kernel (every lane
+    keeps the single launch's order of sums)."""
+    import torch
+
+    from relp_tpu_torch.ops import dense_kernels as dk
+
+    cases = []
+    for label, L, m, n in LANE_SHAPES:
+        A64 = torch.as_tensor(rng.uniform(0.05, 1.0, (m, n)), device=dev)
+        V64 = torch.as_tensor(rng.uniform(0.0, 1.0, (L, m)), device=dev)
+        C64 = torch.as_tensor(rng.uniform(0.0, 1.0, (L, n)), device=dev)
+        for dtype in (torch.float32, torch.float64):
+            A, V, C = (t.to(dtype).contiguous() for t in (A64, V64, C64))
+            tag = f"{label} {'f32' if dtype == torch.float32 else 'f64'}"
+            cases.append((tag, lambda A=A, V=V, C=C: dk.dense_price_lanes(A, V, C),
+                          lambda A=A, V=V, C=C: torch.addmm(C, V, A, alpha=-1),
+                          (L, m, n, A.element_size())))
+    L, m, n = 64, 256, 512
+    for dtype in (torch.float32, torch.float64):
+        A = torch.as_tensor(rng.uniform(0.05, 1.0, (m, n)), dtype=dtype, device=dev)
+        V = torch.as_tensor(rng.uniform(0.0, 1.0, (L, m)), dtype=dtype, device=dev)
+        C = torch.as_tensor(rng.uniform(-1.0, 1.0, (L, n)), dtype=dtype, device=dev)
+        sel = (torch.as_tensor(rng.integers(0, 4, (L, n + m)), device=dev),
+               torch.ones(n, dtype=torch.bool, device=dev),
+               torch.as_tensor(rng.uniform(0.5, 4.0, (L, n)), device=dev),
+               torch.zeros(L, dtype=torch.bool, device=dev), 1e-9, True)
+        tag = f"select {L} x {m}x{n} {'f32' if dtype == torch.float32 else 'f64'}"
+        cases.append((tag, lambda A=A, V=V, C=C, sel=sel: dk.dense_price_select_lanes(A, V, C, *sel),
+                      None, (L, m, n, A.element_size())))
+    for tag, _, lib, _ in cases:
+        if lib is not None:
+            say(f"[sweep] lanes {tag}: torch.addmm(C, V, A, alpha=-1) {us(lib):.2f} us")
+
+    chosen = dk.lane_group
+    reference = {}
+    for stages in (4, 8, 16):
+        build([f"RELP_DENSE_GROUP_STAGES={stages}"])
+        for group in (1, 4, 8, 16):
+            if group == 1 and stages != 8:
+                continue  # the lane-by-lane kernel has no ring
+            dk.lane_group = lambda lanes, *_, g=group: g if lanes > 1 else 1
+            dk.lane_plan.cache_clear()
+            cells = []
+            for tag, fn, _, _ in cases:
+                got = fn()
+                got = got if isinstance(got, tuple) else (got,)
+                want = reference.setdefault(tag, got)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"lanes {tag} group {group} stages {stages}: other "
+                                         "bits than the lane-by-lane kernel's")
+                cells.append(f"{tag} {us(fn):.2f}")
+            say(f"[sweep] lanes stages {stages} group {group} us: " + "; ".join(cells))
+    dk.lane_group = chosen
+    dk.lane_plan.cache_clear()
+    build([])
+    say("[sweep] lanes lane_plan's choice: " + "; ".join(
+        f"{tag} group {dk.lane_plan(L, m, n, size).group} {us(fn):.2f} us"
+        for tag, fn, _, (L, m, n, size) in cases))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="file for a copy of the lines printed")
-    ap.add_argument("--only", choices=("dense", "ell", "spmv"),
-                    help="sweep one kernel (default: all three)")
+    ap.add_argument("--only", choices=("dense", "ell", "spmv", "lanes"),
+                    help="sweep one kernel (default: all four)")
     ap.add_argument("--package-root", default=str(ROOT),
                     help="checkout to import relp_tpu_torch from (default: this one)")
     args = ap.parse_args(argv)
@@ -215,6 +292,10 @@ def main(argv=None) -> int:
     # ---- ell_spmv: segments of a row x row threads of a block x rows a thread
     if want("spmv"):
         sweep_spmv(say, us, rng, dev)
+
+    # ---- the lane kernels: lanes a block serves x depth of the ring of rows
+    if want("lanes"):
+        sweep_lanes(say, us, rng, dev, build)
 
     if args.out:
         out = Path(args.out)
