@@ -22,6 +22,9 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              and without ``c``) at the dense LP's operator, on a window of
              it, at a wide 2,048 × 16,384 and at the first-order path's
              256 × 2,048 max-flow operator; ``probe_scale`` at [8, 128];
+             ``brick_spmv`` (A·x) and ``brick_price`` (c − Aᵀy) on the bricks
+             path's operator (the scaled N = 4,096 max flow in RCM order, 4,096
+             × 32,768) in its grouped layout and in the flat one;
              ``ell_price_select`` and ``dense_price_select`` (the pricing
              pass with the entering column chosen in the kernel) on the two
              operators with the state of a solve cut at 600 iterations, and
@@ -33,8 +36,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              A[4, 256, 512], and ``dense_price_select_lanes`` on the state of
              a lane-batched solve cut mid-way (and with dead lanes), each
              lane also held bit for bit against the single-vector kernel on
-             its data, each row naming the lanes a block served.  Each pricing kernel and
-             ``ell_spmv`` is run twice and must give the same bits.  Device time per launch (CUDA events over
+             its data, each row naming the lanes a block served.  Each pricing kernel,
+             ``ell_spmv`` and both brick kernels are run twice and must give the same bits.  Device time per launch (CUDA events over
              batches of 50 launches) beside the plain version's, the bound
              (the bytes the call must move at 3.35 TB/s, or its operations
              at the card's peak) and one PyTorch call as a yardstick
@@ -70,7 +73,17 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              their f64 KKT); the max flow at N = 256 without crossover,
              which runs on the dense operator (``dense_price`` at least once
              per iteration).
-9. dual    — the dual simplex and what stands on it.  The 4,096-node max flow
+9. bricks  — the first-order engine on the brick operator
+             (``pdlp_matrix="bricks"``: the grouped 8 × 128 bricks of the scaled
+             matrix in RCM order) through ``api.solve``: the max flows at
+             N = 4,096 and N = 1,024 without crossover, each run in turns with
+             the default operator (default, bricks, bricks, default: what
+             ``"auto"`` was decided on), the objective within 1e-5 relative of
+             ``scipy``'s and ``brick_spmv`` and ``brick_price`` each launched
+             at least once per iteration; N = 1,024 with the crossover (the
+             objective equal to ``scipy``'s) and under
+             ``pdlp_precision="mixed"`` (the f32 brick operator on the path).
+10. dual   — the dual simplex and what stands on it.  The 4,096-node max flow
              through ``api.solve(path, SolverConfig(algorithm="dual"))`` on the
              ELL operator (``engine == "dual"``, the objective equal to
              ``scipy``'s, ``ell_price`` at least once per iteration and
@@ -88,7 +101,7 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              through ``solve_mip`` and through the command line's ``--mip``)
              against ``scipy.optimize.milp``, solved meanwhile by the second
              process.
-10. analysis — sensitivity ranging of the dense LP at 256 × 512 (a seeded
+11. analysis — sensitivity ranging of the dense LP at 256 × 512 (a seeded
              sample of 8 cost and 8 rhs intervals, each finite end held against
              re-solves from the optimal basis just inside, where the objective
              must move along the reported slope, and just outside, where it
@@ -100,7 +113,7 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              objective equal to scipy's max flow; ``python -m relp_tpu_torch
              --verify --ranging --json`` and ``--verify`` on a small MPS file,
              exit 0.
-11. colgen — column generation on the dense operator: the cutting stock of
+12. colgen — column generation on the dense operator: the cutting stock of
              examples/column_range.py to its optimum (knapsack pricing) against
              HiGHS on the full enumeration of its patterns, and the masked
              64 × 10,000 pool of tests/test_lazy_pool_10k.py (priced over its
@@ -108,7 +121,7 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              the optimum over every column) against HiGHS; rounds, iterations
              and ``dense_price*`` launches, ``dense_price_select`` at least
              once per iteration.  HiGHS runs in the second process.
-12. ipm    — the interior point (``algorithm="ipm"``) under
+13. ipm    — the interior point (``algorithm="ipm"``) under
              ``ipm_ladder="f64"`` and ``"mixed"``: the dense LP 768 × 1536
              without crossover against HiGHS (1e-6 relative), with the share
              of the wall in the normal-equation product and Cholesky (an
@@ -118,7 +131,7 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              measures); the max flow at N = 1,024 with crossover and at
              N = 4,096 without (a 1 GiB dense operator), against scipy's max
              flow.
-13. fleet  — ``solve_general_forms_batched`` on the card, one engine each:
+14. fleet  — ``solve_general_forms_batched`` on the card, one engine each:
              the interior-point fleet on bench.py's fleet configuration
              (DENSE-768x1536, 64 scenarios, demand and cost moved 3 %, seed
              20260819, presolve off), every lane's primal residual and KKT
@@ -135,10 +148,12 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              once per PDHG step.  Wall, LPs/s, iterations, host reads per
              step, launches per iteration and peak memory of each.  Then
              ``examples/torch_scenario_fleet.py`` (16 scenarios, the IPM fleet).
-14. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file.
+15. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file, and
+             with ``--algorithm pdlp --pdlp-matrix bricks`` (both brick kernels
+             launched).
 
 Launch counts: every kernel's count is set to 0 just before each path that
-runs it (probe, slice, dense, pdlp, the primal and first-order fleets) and
+runs it (probe, slice, dense, pdlp, bricks, the primal and first-order fleets) and
 read just after; launches made to
 compare a kernel with its plain version do not count.  (``dual`` is the
 N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
@@ -146,8 +161,10 @@ N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
 timed row has: ``pdlp`` at N = 4,096 for ``ell_price`` and ``ell_spmv`` (f64
 ``c − Aᵀy`` and A·x), ``dense`` for ``dense_price`` (the f32 sum row), the
 first-order fleet for ``dense_price_lanes`` (16 lanes of ``C − Y·A`` at
-N = 1,024, f32) and the primal fleet for ``dense_price_select_lanes`` (the
-f32 scan); the other first-order runs keep their counts apart.  Every path's counts are
+N = 1,024, f32), the primal fleet for ``dense_price_select_lanes`` (the
+f32 scan) and the bricks path at N = 4,096 for ``brick_spmv`` and
+``brick_price`` (f64 A·x and c − Aᵀy, grouped); the other first-order runs
+keep their counts apart.  Every path's counts are
 printed in its phase and checked at the end.  Any failure raises, so the
 run exits nonzero without the final line.  The line before the last is the
 kernel report, one JSON object; the last line is ``{"ok": true, "device":
@@ -239,6 +256,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "dense_price_lanes": ("relp_tpu_torch/csrc/dense_kernels.cu", "tools/probe_pallas.py:50"),
     "dense_price_select_lanes": ("relp_tpu_torch/csrc/dense_kernels.cu",
                                  "tools/probe_pallas.py:50"),
+    "brick_spmv": ("relp_tpu_torch/csrc/brick_kernels.cu", "relp_tpu/ops/pallas_kernels.py:64"),
+    "brick_price": ("relp_tpu_torch/csrc/brick_kernels.cu",
+                    "relp_tpu/ops/pallas_kernels.py:126"),
     "probe_scale_f32": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:24"),
     "probe_scale_f64": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:37"),
 }
@@ -246,6 +266,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 
 def _wrappers():
     """Every kernel wrapper by name (each carries its ``launches`` count)."""
+    from relp_tpu_torch.ops.brick_kernels import brick_price, brick_spmv
     from relp_tpu_torch.ops.dense_kernels import (
         dense_price, dense_price_lanes, dense_price_select, dense_price_select_lanes,
     )
@@ -256,6 +277,7 @@ def _wrappers():
             "ell_spmv": ell_spmv, "dense_price": dense_price,
             "dense_price_select": dense_price_select, "dense_price_lanes": dense_price_lanes,
             "dense_price_select_lanes": dense_price_select_lanes,
+            "brick_spmv": brick_spmv, "brick_price": brick_price,
             "probe_scale_f32": probe_scale_f32, "probe_scale_f64": probe_scale_f64}
 
 
@@ -912,6 +934,100 @@ def _kernels_lanes(smi, dev, rng, dense_op):
             "dense_price_select_lanes": report[("f32", "select")]}
 
 
+def first_order_operator(n_nodes, dev, pdlp_matrix="auto"):
+    """The first-order engine's operator of the max flow at ``n_nodes``
+    nodes, built as ``_run_pdlp`` builds it (presolve, lowering, padding,
+    scaling): ``(operator, csc of the operator's space, rpad, cpad)``.  Under
+    ``pdlp_matrix="bricks"`` the scaled matrix sits in RCM order in a
+    128-aligned space (``driver._brick_operator``)."""
+    import scipy.sparse as sp
+
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex import driver
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    general, _ = slice_problem(n_nodes)
+    presolve(general)
+    cf = build_computational_form(general, scale=True)
+    p = driver._Padded.of(cf, SolverConfig(algorithm="pdlp", pdlp_matrix=pdlp_matrix), dev)
+    d_r, d_c, csc_s = driver._pdlp_scaling(p)
+    op, _, rpad, cpad, _, _ = driver._pdlp_operator(p, d_r, d_c, csc_s)
+    csc_s = csc_s.tocsc()
+    if rpad is not None:
+        csc_s = csc_s[rpad[:cf.m]][:, cpad[:cf.n]]
+    coo = csc_s.tocoo()
+    return op, sp.csc_matrix((coo.data, (coo.row, coo.col)), shape=op.shape), rpad, cpad
+
+
+def _csr_tensor(csr, dev, dtype):
+    """A scipy CSR matrix as a torch sparse CSR tensor (the yardstick's operand)."""
+    import torch
+
+    csr = csr.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype("int32"), device=dev),
+        torch.as_tensor(csr.indices.astype("int32"), device=dev),
+        torch.as_tensor(csr.data, dtype=dtype, device=dev), size=csr.shape)
+
+
+def _kernels_bricks(smi, dev, rng):
+    """``brick_spmv`` (A·x) and ``brick_price`` (c − Aᵀy) on the operator of
+    the bricks path, the RCM-ordered N = 4,096 max flow, in the grouped layout
+    the driver builds and in the flat one, f64 and f32.  The bound reads every
+    brick (empty slots too) and every id once, the vector, c and the output
+    once; the yardstick is ``torch.mv`` on a sparse CSR of the same matrix (or
+    of its transpose)."""
+    import torch
+
+    from relp_tpu_torch.ops.brick_kernels import (
+        brick_price, brick_price_plain, brick_spmv, brick_spmv_plain,
+    )
+    from relp_tpu_torch.ops.bricks import bricks_from_csc
+
+    grouped, csc, _, _ = first_order_operator(N_NODES, dev, "bricks")
+    mp, np_ = grouped.shape
+    flat = bricks_from_csc(csc, mp, np_, device=dev)
+    layouts = {  # label -> (row groups, their store order, column groups, theirs)
+        "grouped": (grouped.rgroups, grouped.rtile, grouped.cgroups, grouped.ctile),
+        "flat": (((flat.rdata, flat.ridx),), None, ((flat.cdata, flat.cidx),), None),
+    }
+    x = torch.as_tensor(rng.standard_normal(np_), device=dev)
+    y = torch.as_tensor(rng.standard_normal(mp), device=dev)
+    c = torch.as_tensor(rng.standard_normal(np_), device=dev)
+    mv = "torch.mv(sparse CSR)"
+    report = {}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        xd, yd, cd = x.to(dtype), y.to(dtype), c.to(dtype)
+        csr, csr_t = _csr_tensor(csc, dev, dtype), _csr_tensor(csc.T, dev, dtype)
+        for label, (rg, rtile, cg, ctile) in layouts.items():
+            rg = [(d.to(dtype), i) for d, i in rg]
+            cg = [(d.to(dtype), i) for d, i in cg]
+            r_slots = sum(i.numel() for _, i in rg)
+            c_slots = sum(i.numel() for _, i in cg)
+            shape = (f"{label} {len(rg)}/{len(cg)} groups, {r_slots}/{c_slots} brick slots, "
+                     f"{mp}x{np_}")
+            report[("spmv", tag, label)] = _compare(
+                f"brick_spmv {tag} A·x {shape}",
+                lambda: brick_spmv(rg, xd, rtile), lambda: brick_spmv_plain(rg, xd, rtile),
+                tol, smi, nbytes=_nbytes(*(t for g in rg for t in g), xd, rtile) + mp * xd.element_size(),
+                flops=2 * sum(d.numel() for d, _ in rg), tag=tag,
+                library_fn=lambda: torch.mv(csr, xd), library=mv, same_bits=True, plain_runs=10)
+            report[("price", tag, label)] = _compare(
+                f"brick_price {tag} c-Aᵀy {shape}",
+                lambda: brick_price(cg, yd, cd, ctile), lambda: brick_price_plain(cg, yd, cd, ctile),
+                tol, smi, nbytes=_nbytes(*(t for g in cg for t in g), yd, cd, cd, ctile),
+                flops=2 * sum(d.numel() for d, _ in cg), tag=tag,
+                library_fn=lambda: torch.mv(csr_t, yd), library=mv, same_bits=True, plain_runs=10)
+        del csr, csr_t
+    del grouped, flat, layouts
+    torch.cuda.empty_cache()
+    # the bricks path's launches (f64 under the default precision), grouped
+    return {"brick_spmv": report[("spmv", "f64", "grouped")],
+            "brick_price": report[("price", "f64", "grouped")]}
+
+
 def phase_kernels(smi):
     """Every kernel against its plain version on the card."""
     import numpy as np
@@ -930,7 +1046,9 @@ def phase_kernels(smi):
                                    dense_lp(*DENSE_SHAPE)))
     timings.update(_kernels_probe(smi, dev))
     timings.update(_kernels_lanes(smi, dev, rng, dense_op))
+    del ell_op, dense_op
     torch.cuda.empty_cache()
+    timings.update(_kernels_bricks(smi, dev, rng))
     return timings
 
 
@@ -1078,18 +1196,19 @@ def phase_options(smi):
           f"{ell_price.launches - price0} api_wall {wall:.3f} s")
 
 
-def _report_pdlp(tag, res, wall, smi, counts):
-    """The first-order run's line; returns (metrics, host reads per round)."""
+def _report_pdlp(tag, res, wall, smi, counts, phase="pdlp"):
+    """The first-order run's line; returns its metrics."""
     import torch
 
     met = res.simplex.metrics
     its = max(met.fo_iterations, 1)
-    print(f"[pdlp] {tag}: engine {met.engine} iterations {met.iterations} (first-order "
+    print(f"[{phase}] {tag}: engine {met.engine} iterations {met.iterations} (first-order "
           f"{met.fo_iterations}: f32 stage {met.fo_f32_iterations}, f64 "
           f"{met.fo_iterations - met.fo_f32_iterations}; rounds {met.fo_rounds}, refinement "
           f"zooms {met.fo_refines}) final f64 KKT {met.fo_kkt:.3e} push pivots "
           f"{met.push_pivots} solve_wall {met.wall_s:.3f} s ({met.wall_s / its * 1e6:.1f} us "
-          f"per first-order iteration) api_wall {wall:.3f} s host_reads {met.host_reads} "
+          f"per first-order iteration; set-up {met.fo_setup_s:.3f} s, operator "
+          f"{met.fo_matrix}) api_wall {wall:.3f} s host_reads {met.host_reads} "
           f"({met.host_reads / max(met.fo_rounds, 1):.3f} per round, driver's included) peak_mem "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB launches "
           + " ".join(f"{k} {v} ({v / its:.3f}/iter)" for k, v in counts.items())
@@ -1183,6 +1302,78 @@ def phase_pdlp(smi, launches):
         raise AssertionError(f"[pdlp] launches {PATHS['pdlp dense']} for "
                              f"{met.fo_iterations} first-order iterations")
     print(f"[pdlp] objective {obj:.12g} scipy {flow:.12g} rel {abs(obj - flow) / abs(flow):.2e}")
+
+
+def phase_bricks(smi, launches):
+    """The first-order engine on the brick operator (``pdlp_matrix="bricks"``)
+    through ``api.solve``, and the default operator's runs of the same LPs
+    in turns beside it (what ``"auto"`` was decided on)."""
+    import torch
+
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    names = ("brick_spmv", "brick_price")
+    for n_nodes in (N_NODES, OPTIONS_NODES):
+        general, flow = slice_problem(n_nodes)
+        walls = {"auto": [], "bricks": []}
+        # in turns: default, bricks, bricks, default
+        for i, matrix in enumerate(("auto", "bricks", "bricks", "auto")):
+            cfg = SolverConfig(algorithm="pdlp", pdlp_crossover=False, pdlp_matrix=matrix)
+            path = f"bricks N={n_nodes} {matrix} #{i}"
+            main_path = n_nodes == N_NODES and i == 1
+            torch.cuda.reset_peak_memory_stats()
+            with counted(names, launches if main_path else {}, path) if matrix == "bricks" \
+                    else contextlib.nullcontext():
+                res, wall = _solve_file(general, f"maxflow_{n_nodes}", cfg)
+            obj = _check_optimal("bricks", res, "ell")
+            met = _report_pdlp(f"max-flow N={n_nodes} without crossover, pdlp_matrix={matrix!r}",
+                               res, wall, smi, PATHS.get(path, {}), "bricks")
+            # "auto" never takes the bricks
+            if met.engine != "pdlp" or (met.fo_matrix == "bricks") != (matrix == "bricks") or \
+                    abs(obj - flow) > 1e-5 * abs(flow):
+                raise AssertionError(f"[bricks] engine {met.engine!r} operator "
+                                     f"{met.fo_matrix!r} objective {obj!r}, scipy's {flow!r}")
+            if matrix == "bricks" and min(PATHS[path].values()) < met.fo_iterations:
+                raise AssertionError(f"[bricks] launches {PATHS[path]} for "
+                                     f"{met.fo_iterations} first-order iterations")
+            walls[matrix].append((met.wall_s, met.fo_setup_s, met.fo_iterations, wall))
+        print(f"[bricks] N={n_nodes} in turns (solve wall s, of it set-up s, iterations, "
+              "us per iteration after the set-up, api wall s): " + "; ".join(
+                  f"{k} " + ", ".join(f"({w:.3f}, {su:.3f}, {it}, {(w - su) / it * 1e6:.1f}, "
+                                      f"{a:.3f})" for w, su, it, a in v)
+                  for k, v in walls.items()) + f" [{smi}]")
+
+    # the crossover from the brick operator's point: scipy's vertex exactly
+    general, flow = slice_problem(OPTIONS_NODES)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(names, {}, "bricks crossover"):
+        res, wall = _solve_file(general, f"maxflow_{OPTIONS_NODES}",
+                                SolverConfig(algorithm="pdlp", pdlp_matrix="bricks"))
+    obj = _check_optimal("bricks", res, "ell")
+    met = _report_pdlp(f"max-flow N={OPTIONS_NODES} with crossover, pdlp_matrix='bricks'",
+                       res, wall, smi, PATHS["bricks crossover"], "bricks")
+    if met.engine != "pdlp+crossover" or met.fo_matrix != "bricks" or abs(obj - flow) > 1e-6:
+        raise AssertionError(f"[bricks] engine {met.engine!r} objective {obj!r}, expected "
+                             f"'pdlp+crossover' and scipy's {flow!r}")
+    print(f"[bricks] objective {obj:.12g} == scipy {flow:.12g} after {met.push_pivots} "
+          "push pivots")
+
+    # mixed precision: the f32 brick operator (astype) runs the f32 rounds
+    torch.cuda.reset_peak_memory_stats()
+    with counted(names, {}, "bricks mixed"):
+        res, wall = _solve_file(general, f"maxflow_{OPTIONS_NODES}", SolverConfig(
+            algorithm="pdlp", pdlp_matrix="bricks", pdlp_crossover=False,
+            pdlp_precision="mixed"))
+    obj = _check_optimal("bricks", res, "ell")
+    met = _report_pdlp(f"max-flow N={OPTIONS_NODES} without crossover, mixed precision, "
+                       "pdlp_matrix='bricks'", res, wall, smi, PATHS["bricks mixed"], "bricks")
+    if met.engine != "pdlp" or abs(obj - flow) > 1e-5 * abs(flow) or \
+            met.fo_f32_iterations < 1 or min(PATHS["bricks mixed"].values()) < met.fo_iterations:
+        raise AssertionError(f"[bricks] engine {met.engine!r} objective {obj!r} (scipy's "
+                             f"{flow!r}) f32 iterations {met.fo_f32_iterations} launches "
+                             f"{PATHS['bricks mixed']}")
+    print(f"[bricks] objective {obj:.12g} scipy {flow:.12g} rel {abs(obj - flow) / abs(flow):.2e}")
+    torch.cuda.empty_cache()
 
 
 def knapsack_data(rows, cols):
@@ -2005,16 +2196,23 @@ def phase_fleet(smi, launches, fleet_refs):
 def phase_cli():
     from relp_tpu_torch import cli
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "testprob.mps")
-        Path(path).write_text(WIKI_MPS)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["-q", path])
-    out = buf.getvalue().strip()
-    if rc != 0 or out != "objective -8":
-        raise AssertionError(f"[cli] rc={rc} output {out!r}, expected 'objective -8'")
-    print(f"[cli] python -m relp_tpu_torch -q testprob.mps -> {out}")
+    for flags, names in (((), ()),
+                         (("--algorithm", "pdlp", "--pdlp-matrix", "bricks"),
+                          ("brick_spmv", "brick_price"))):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "testprob.mps")
+            Path(path).write_text(WIKI_MPS)
+            buf = io.StringIO()
+            with counted(names, {}, f"cli {' '.join(flags)}") if names else \
+                    contextlib.nullcontext(), contextlib.redirect_stdout(buf):
+                rc = cli.main([*flags, "-q", path])
+        out = buf.getvalue().strip()
+        if rc != 0 or out != "objective -8":
+            raise AssertionError(f"[cli] {flags}: rc={rc} output {out!r}, expected "
+                                 "'objective -8'")
+        counts = PATHS.get(f"cli {' '.join(flags)}", {})
+        print(f"[cli] python -m relp_tpu_torch {' '.join((*flags, '-q'))} testprob.mps -> {out}"
+              + (f" (launches {counts})" if counts else ""))
 
 
 def main() -> int:
@@ -2047,6 +2245,7 @@ def main() -> int:
                   lambda: phase_slice(smi, launches),
                   lambda: phase_dense(smi, launches, highs),
                   lambda: phase_options(smi), lambda: phase_pdlp(smi, launches),
+                  lambda: phase_bricks(smi, launches),
                   lambda: phase_dual(smi, launches, highs, milp_ref),
                   lambda: phase_analysis(smi), lambda: phase_colgen(smi, colgen_ref),
                   lambda: phase_ipm(smi, highs, highs_small),

@@ -9,8 +9,8 @@ starts, ``--write-mps`` export, ``--perturb``, ``--inverse``), its dual ones
 (``--algorithm ipm``, ``--ipm-*``), sensitivity ranging (``--ranging``) and the
 exact check and optimality certificate (``--verify``, exit code 3 when either
 fails).  The device comes from ``RELP_TPU_TORCH_DEVICE`` (default ``cuda``).
-Flags and values of the JAX package's CLI whose parts are not ported yet
-(``--mesh-cols``, ``--pdlp-matrix bricks``) exit with a message saying so.
+The JAX package's one flag whose part is not ported yet (``--mesh-cols``)
+exits with a message saying so.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--pdlp-matrix", choices=["auto", "ell", "bricks"], default="auto",
         help="PDHG device matrix (auto, ell = the operator --matrix-format picks; "
-        "bricks is not ported yet)",
+        "bricks = the 8x128 brick operator in RCM order)",
     )
     ap.add_argument(
         "--pdlp-variant", choices=["halpern", "avg"], default="halpern",
@@ -162,9 +162,6 @@ def main(argv=None) -> int:
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
 
-    if args.pdlp_matrix == "bricks":
-        ap.exit(2, "relp_tpu_torch: --pdlp-matrix bricks is not ported yet (see "
-                   "ROADMAP.md, queue 1); use python -m relp_tpu for it\n")
     config = SolverConfig(
         max_iter=args.max_iter,
         scale=not args.no_scale,

@@ -38,6 +38,7 @@ one batched normal-equation product and Cholesky per iteration).
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -83,17 +84,15 @@ def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult if x > 0 else mult
 
 
-def _device_matrix(cf: ComputationalForm, m_pad: int, n_pad: int,
-                   config: SolverConfig, device: torch.device):
-    """Choose and build the device operator of A.
+def _matrix_format(csc, m_pad: int, config: SolverConfig):
+    """``(format, column counts, spill threshold, spill columns)`` of the
+    operator :func:`_device_matrix` builds for ``csc``.
 
     "auto" picks ELL when the problem is large (m_pad >= 1024) and its
     longest column is short (K·8 <= m_pad), dense otherwise — the JAX
     package's CPU rule, used here on every device.  ELL with at most 64
-    very long ("spill") columns becomes hybrid.  ELL pads carry the true
-    per-column / per-row maxima.
+    very long ("spill") columns becomes hybrid.
     """
-    csc = sp.csc_matrix(cf.A)
     fmt = config.matrix_format
     counts = np.diff(csc.indptr)
     k_true = int(counts.max()) if counts.size else 1
@@ -103,6 +102,15 @@ def _device_matrix(cf: ComputationalForm, m_pad: int, n_pad: int,
         fmt = "ell" if (m_pad >= 1024 and k_true * 8 <= m_pad) else "dense"
     if fmt == "ell" and 0 < n_spill <= 64:
         fmt = "hybrid"
+    return fmt, counts, spill_thresh, n_spill
+
+
+def _device_matrix(cf: ComputationalForm, m_pad: int, n_pad: int,
+                   config: SolverConfig, device: torch.device):
+    """Choose (:func:`_matrix_format`) and build the device operator of A;
+    ELL pads carry the true per-column / per-row maxima."""
+    csc = sp.csc_matrix(cf.A)
+    fmt, counts, spill_thresh, n_spill = _matrix_format(csc, m_pad, config)
     if fmt == "hybrid":
         sparse_counts = counts[counts <= spill_thresh]
         k_sparse = int(sparse_counts.max()) if sparse_counts.size else 1
@@ -272,18 +280,75 @@ def _pdlp_scaling(p: _Padded):
     return d_r, d_c, sp.diags(d_r[: cf.m]) @ p.A_csc @ sp.diags(d_c[: cf.n])
 
 
+def _brick_operator(csc_s, cf: ComputationalForm, m_pad: int, n_pad: int,
+                    device: torch.device):
+    """The grouped brick operator of the scaled matrix ``csc_s`` in its own
+    space, as the JAX driver builds it: dims rounded up to multiples of 128,
+    rows and columns in bipartite RCM order (``bandwidth_perm``: bricks want
+    the nonzeros clustered), the order extended over the pad.  Returns
+    ``(operator, rpad, cpad)``: row i of the operator is padded row
+    ``rpad[i]``, column j padded column ``cpad[j]``."""
+    from relp_tpu_torch.ops.bricks import bandwidth_perm, grouped_bricks_from_csc
+
+    mp = max(_round_up(m_pad, 128), 128)
+    np_ = max(_round_up(n_pad, 128), 128)
+    csc_s = csc_s.tocsc()
+    rp, cp = bandwidth_perm(csc_s)
+    rpad = np.concatenate([rp, np.arange(cf.m, mp)])
+    cpad = np.concatenate([cp, np.arange(cf.n, np_)])
+    coo = csc_s[rp][:, cp].tocoo()
+    csc_pad = sp.csc_matrix((coo.data, (coo.row, coo.col)), shape=(mp, np_))
+    return grouped_bricks_from_csc(csc_pad, mp, np_, device=device), rpad, cpad
+
+
+def _pdlp_operator(p: _Padded, d_r, d_c, csc_s):
+    """The first-order engine's operator of the scaled matrix ``csc_s`` and
+    the scaled ``[b, c, lb, ub]`` (host numpy) in its space.  Returns
+    ``(operator, vectors, rpad, cpad, matrix_format, fo_matrix)``:
+    ``rpad``/``cpad`` map the operator's rows and columns to padded ones
+    (None: the identity), ``matrix_format`` names the simplex operator (what
+    the JAX package reports for a first-order solve), ``fo_matrix`` this one.
+
+    "auto" and "ell" take the operator matrix_format picks, on every device:
+    the brick products lost to it end to end on an H100 (PERF.md §6, the max
+    flows at N = 1,024 and N = 4,096), so "auto" never picks bricks here.  The
+    JAX package's "auto" takes them on any accelerator, for the TPU's serial
+    element gathers."""
+    from types import SimpleNamespace
+
+    cf = p.cf
+    with np.errstate(invalid="ignore"):
+        lb_h = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
+        ub_h = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
+    vecs = [p.b * d_r, p.c * d_c, lb_h, ub_h]
+    if p.config.pdlp_matrix != "bricks":
+        A_s, fmt = _device_matrix(SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), p.m_pad, p.n_pad,
+                                  p.config, p.dev)
+        return A_s, vecs, None, None, fmt, fmt
+    A_s, rpad, cpad = _brick_operator(csc_s, cf, p.m_pad, p.n_pad, p.dev)
+    mp, np_ = A_s.shape
+    vecs = [np.concatenate([v, np.zeros(k - len(v))])[perm]
+            for v, k, perm in zip(vecs, (mp, np_, np_, np_), (rpad, cpad, cpad, cpad))]
+    fmt = _matrix_format(csc_s.tocsc(), p.m_pad, p.config)[0]
+    return A_s, vecs, rpad, cpad, fmt, "bricks"
+
+
 def _run_pdlp(p: _Padded, fo: dict):
     """Restarted PDHG (fom/pdhg.py, the first-order scale path): two sparse
     products and vector work per iteration, no inverse, no factorization.
     Returns a SolveOutput-shaped namespace (numpy, ``vertex=False``) on
     convergence, else None (the caller falls back to the primal simplex).
-    ``fo`` receives the run's counters and the device format.
+    ``fo`` receives the run's counters, the simplex operator's format (what
+    ``SolveMetrics.matrix_format`` reports, as in the JAX package) and the
+    first-order operator's.
 
-    Port of ``_run_pdlp`` of the JAX driver without its brick and mesh
-    branches.  The state, the best snapshot and the composite point of a
-    refinement frame stay on the device; per call of ``solve_pdhg_chunk``
-    the host reads one vector after every round and, in the f32 stage, the
-    f64 KKT of the composite point."""
+    Port of ``_run_pdlp`` of the JAX driver without its mesh branch.  Under
+    ``pdlp_matrix="bricks"`` the solve runs on the grouped brick operator
+    (``_brick_operator``) in its RCM-permuted space and the point is
+    un-permuted before it leaves.  The state, the best snapshot and the
+    composite point of a refinement frame stay on the device; per call of
+    ``solve_pdhg_chunk`` the host reads one vector after every round and, in
+    the f32 stage, the f64 KKT of the composite point."""
     from types import SimpleNamespace
 
     from relp_tpu_torch.fom.pdhg import (
@@ -291,19 +356,27 @@ def _run_pdlp(p: _Padded, fo: dict):
     )
     from relp_tpu_torch.utils.metrics import logger as _log
 
+    t_setup = time.perf_counter()
     config, dev, cf = p.config, p.dev, p.cf
     m_pad, n_pad = p.m_pad, p.n_pad
     d_r, d_c, csc_s = _pdlp_scaling(p)
-    with np.errstate(invalid="ignore"):
-        lb_h = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
-        ub_h = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
-    A_s, fo["matrix_format"] = _device_matrix(
-        SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), m_pad, n_pad, config, dev)
+    A_s, vecs, rpad, cpad, fo["matrix_format"], fo["fo_matrix"] = _pdlp_operator(
+        p, d_r, d_c, csc_s)
+
+    def unpermute(v, perm, size):
+        """A point of the operator's space in padded coordinates."""
+        v = v.cpu().numpy()
+        if perm is None:
+            return v
+        out = np.empty(len(perm))
+        out[perm] = v
+        return out[:size]
+
     f64, f32 = torch.float64, torch.float32
-    b_s, c_s, lb_s, ub_s = (torch.as_tensor(v, dtype=f64, device=dev)
-                            for v in (p.b * d_r, p.c * d_c, lb_h, ub_h))
+    b_s, c_s, lb_s, ub_s = (torch.as_tensor(v, dtype=f64, device=dev) for v in vecs)
     reads = 1
     norm_A = float(_power_norm(A_s))
+    fo["setup_s"] = time.perf_counter() - t_setup
     if not np.isfinite(norm_A) or norm_A <= 0:
         return None
     state = initial_state(A_s, lb_s, ub_s, 0.9 / norm_A)
@@ -584,7 +657,7 @@ def _run_pdlp(p: _Padded, fo: dict):
     else:
         (X_fin, Y_fin), kkt_fin = composite(), last_kkt64
     fo["kkt"] = float(kkt_fin)
-    x_np = d_c * X_fin.cpu().numpy()
+    x_np = d_c * unpermute(X_fin, cpad, n_pad)
     r = p.b.copy()
     r[: cf.m] -= np.asarray(p.A_csc @ x_np[: cf.n])
     return SimpleNamespace(
@@ -595,7 +668,7 @@ def _run_pdlp(p: _Padded, fo: dict):
         basis=n_pad + np.arange(m_pad, dtype=np.int32),
         vstat=np.full(n_pad + m_pad, st.NB_LOWER, np.int32),
         art_inf=float(np.max(np.abs(r))),
-        pi=d_r * Y_fin.cpu().numpy(),
+        pi=d_r * unpermute(Y_fin, rpad, m_pad),
         obj=float(p.c @ x_np),
         art_sign=np.ones(m_pad),
         viol=float(kkt_fin),
@@ -1015,7 +1088,8 @@ def solve_computational_form(
         check_violation=check_violation,
         fo_iterations=fo.get("iterations", 0), fo_f32_iterations=fo.get("f32_iterations", 0),
         fo_rounds=fo.get("rounds", 0), fo_round_reads=fo.get("round_reads", 0),
-        fo_refines=fo.get("refines", 0),
+        fo_refines=fo.get("refines", 0), fo_matrix=fo.get("fo_matrix", ""),
+        fo_setup_s=fo.get("setup_s", 0.0),
         fo_kkt=fo.get("kkt", 0.0), push_pivots=fo.get("push_pivots", 0),
         ipm_ladder=fo.get("ladder", ""),
     )
@@ -1282,7 +1356,6 @@ def _solve_fleet_pdlp(A, b, c, lb, ub, config: SolverConfig, max_iter: int,
     all host numpy.  Returns a namespace with per-lane ``status``, ``it``,
     ``art_inf``, ``pi`` and ``x`` (numpy), the surface of
     :func:`relp_tpu_torch.parallel.solve_batched`."""
-    import time
     from types import SimpleNamespace
 
     from relp_tpu_torch.fom.pdhg import _kkt, initial_state, solve_pdhg_chunk
@@ -1703,7 +1776,6 @@ def solve_general_forms_batched(generals, config: SolverConfig = DEFAULT_CONFIG,
     the single solve's.  ``device=None`` reads ``RELP_TPU_TORCH_DEVICE``;
     ``stats`` (a list) gets one dict per group solved as a fleet (shape,
     lanes, engine, iterations, host reads, wall)."""
-    import time
 
     from relp_tpu_torch.model.computational_form import build_computational_form
     from relp_tpu_torch.parallel.batched import solve_batched

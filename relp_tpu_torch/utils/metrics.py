@@ -69,6 +69,12 @@ class SolveMetrics:
     fo_round_reads: int = 0
     fo_refines: int = 0
     fo_kkt: float = 0.0
+    # the first-order engine's operator ("dense", "ell", "hybrid" or "bricks",
+    # the last under pdlp_matrix="bricks"; matrix_format names the simplex
+    # operator, as in the JAX package) and the host seconds of its set-up
+    # (scaling, the operator's build and transfer, the norm's power iteration)
+    fo_matrix: str = ""
+    fo_setup_s: float = 0.0
     push_pivots: int = 0
     ipm_ladder: str = ""
 

@@ -29,6 +29,13 @@ from relp_tpu_torch.ops.dense_kernels import (
     dense_price_select_plain,
     lane_plan,
 )
+from relp_tpu_torch.ops.brick_kernels import (
+    brick_price,
+    brick_price_plain,
+    brick_spmv,
+    brick_spmv_plain,
+)
+from relp_tpu_torch.ops.bricks import bricks_from_csc, grouped_bricks_from_csc
 from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
 from relp_tpu_torch.ops.sparse_kernels import (
     ell_price,
@@ -521,3 +528,93 @@ def test_fleets_on_the_card_match_the_cpu(cuda, algorithm):
         assert a.kind == b.kind
         assert a.solution.objective_value == pytest.approx(b.solution.objective_value,
                                                            rel=1e-6)
+
+
+def _ragged_matrix(m, n, seed):
+    """Row tile t touches 1 + (5t mod 6) column blocks: the grouped layout
+    cuts the tiles into groups of unequal lengths and slot counts."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for t in range(m // 8):
+        for blk in rng.choice(n // 128, 1 + (5 * t) % 6, replace=False):
+            rows.append(8 * t + rng.integers(0, 8, 4))
+            cols.append(128 * blk + rng.integers(0, 128, 4))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return sp.csc_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(m, n))
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("layout", ["flat", "grouped"])
+@pytest.mark.parametrize("matrix", ["ragged", "zero", "identity"])
+def test_brick_kernels_match_plain_versions_and_repeat_their_bits(cuda, dtype, tol, layout,
+                                                                  matrix):
+    m, n = 512, 768
+    csc = {"ragged": lambda: _ragged_matrix(m, n, 5),
+           "zero": lambda: sp.csc_matrix((m, n)),
+           "identity": lambda: sp.eye(m, n, format="csc")}[matrix]()
+    build = bricks_from_csc if layout == "flat" else grouped_bricks_from_csc
+    B = build(csc, m, n, device=cuda).astype(dtype)
+    if layout == "flat":
+        rg, rt, cg, ct = [(B.rdata, B.ridx)], None, [(B.cdata, B.cidx)], None
+    else:
+        rg, rt, cg, ct = B.rgroups, B.rtile, B.cgroups, B.ctile
+        if matrix == "ragged":   # several groups, of unequal slot counts
+            assert len(rg) > 1 and len({d.shape[1] for d, _ in rg}) > 1
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    y = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=cuda)
+    c = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    spmv0, price0 = brick_spmv.launches, brick_price.launches
+    for fn, plain in ((lambda: brick_spmv(rg, x, rt), lambda: brick_spmv_plain(rg, x, rt)),
+                      (lambda: brick_price(cg, y, c, ct), lambda: brick_price_plain(cg, y, c, ct)),
+                      (lambda: brick_price(cg, y, None, ct),
+                       lambda: brick_price_plain(cg, y, None, ct))):
+        got = fn()
+        again = fn()
+        want = plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert (brick_spmv.launches - spmv0, brick_price.launches - price0) == (2, 4)
+    # and against scipy, in f64
+    if dtype == torch.float64:
+        A = csc.toarray()
+        np.testing.assert_allclose(B.matvec(x).cpu().numpy(), A @ x.cpu().numpy(), atol=1e-12)
+        np.testing.assert_allclose(B.price(c, y).cpu().numpy(),
+                                   c.cpu().numpy() - A.T @ y.cpu().numpy(), atol=1e-12)
+
+
+def test_brick_kernels_refuse_what_they_do_not_take(cuda):
+    B = bricks_from_csc(sp.identity(128, format="csc"), 128, 128, device=cuda)
+    x = torch.ones(128, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        brick_spmv([(B.rdata, B.ridx)], x.cpu())
+    with pytest.raises(TypeError):
+        brick_price([(B.cdata, B.cidx)], x, x.float())
+    groups = [(B.rdata, B.ridx)] * 17      # more groups than a launch's table holds
+    with pytest.raises(ValueError, match="groups"):
+        brick_spmv(groups, x)
+
+
+@pytest.mark.parametrize("crossover", [False, True])
+def test_pdlp_on_bricks_on_the_card_matches_the_cpu(cuda, tmp_path, crossover):
+    n_nodes = 256
+    arcs = random_arcs(n_nodes, 8, seed=7)
+    u, v, cap = (np.array(col) for col in zip(*arcs))
+    graph = sp.csr_matrix((cap.astype(np.int32), (u, v)), shape=(n_nodes, n_nodes))
+    flow = maximum_flow(graph, 0, n_nodes - 1).flow_value
+    path = tmp_path / "maxflow_256.mps"
+    export_mps(max_flow_lp(n_nodes, arcs, 0, n_nodes - 1), path)
+    cfg = SolverConfig(algorithm="pdlp", pdlp_matrix="bricks", pdlp_crossover=crossover)
+    spmv0, price0 = brick_spmv.launches, brick_price.launches
+    card = api.solve(path, cfg, device=cuda)
+    met = card.simplex.metrics
+    assert met.fo_matrix == "bricks" and met.device.startswith("cuda")
+    assert min(brick_spmv.launches - spmv0, brick_price.launches - price0) >= met.fo_iterations
+    cpu = api.solve(path, cfg, device="cpu")
+    assert card.kind == cpu.kind
+    assert card.simplex.metrics.engine == cpu.simplex.metrics.engine
+    # the same f64 iteration, sums in another order
+    assert card.solution.objective_value == pytest.approx(cpu.solution.objective_value,
+                                                          rel=1e-9 if crossover else 1e-6)
+    assert card.solution.objective_value == pytest.approx(flow, rel=1e-9 if crossover else 1e-5)

@@ -188,13 +188,10 @@ def test_cli_mip_json_carries_the_search_counters(tmp_path, capsys):
 def test_cli_refuses_flags_not_ported(tmp_path, capsys):
     path = tmp_path / "testprob.mps"
     path.write_text(WIKI_MPS)
-    for flags, said in ((["--mesh-cols", "2"], "--mesh-cols is not ported"),
-                        (["--algorithm", "pdlp", "--pdlp-matrix", "bricks"],
-                         "--pdlp-matrix bricks is not ported")):
-        with pytest.raises(SystemExit) as exc:
-            cli.main([*flags, str(path)])
-        assert exc.value.code == 2
-        assert said in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--mesh-cols", "2", str(path)])
+    assert exc.value.code == 2
+    assert "--mesh-cols is not ported" in capsys.readouterr().err
 
 
 def test_package_never_imports_jax():
@@ -239,9 +236,9 @@ def test_config_refuses_engines_not_ported():
     assert SolverConfig(algorithm="pdlp").pdlp_matrix == "auto"
     assert SolverConfig(algorithm="dual").dual_ratio == "sort"  # the JAX default is "bisect"
     assert SolverConfig(algorithm="ipm").ipm_ladder == "auto"
-    for field, value in (("pdlp_matrix", "bricks"), ("mesh_cols", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SolverConfig(**{field: value})
+    assert SolverConfig(algorithm="pdlp", pdlp_matrix="bricks").pdlp_matrix == "bricks"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SolverConfig(mesh_cols=2)
     with pytest.raises(ValueError):
         SolverConfig(pricing="steepest")
     with pytest.raises(ValueError):

@@ -4,7 +4,7 @@
     python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual|ipm|
                                                     fleet-primal|fleet-pdlp|fleet-ipm]
                                          [--nodes 4096] [--iters 600] [--out FILE]
-                                         [--crossover]
+                                         [--crossover] [--pdlp-matrix auto|bricks]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
 LP of ``--nodes`` nodes on the ELL operator, or the dense LP at 768 × 1536 on
@@ -18,10 +18,13 @@ device and by host time; ``--out`` receives the full profiler tables.
 
 ``--problem pdlp`` profiles the first-order engine's rounds instead: the
 max-flow LP is scaled and sent to the device as the driver's ``_run_pdlp``
-does it, and ``solve_pdhg_chunk`` runs ``--iters`` PDHG steps (whole rounds
-of 256) from the initial state, for each restart scheme in f32 and in f64.
-Per iteration it prints launches, kernel time, wall, the device's busy
-share, and the share of ``ell_price`` + ``ell_spmv`` in the kernel time.
+does it (on the operator ``--pdlp-matrix`` names: ``auto``, the ELL operator
+there, or ``bricks``, the grouped brick operator in RCM order), and
+``solve_pdhg_chunk`` runs ``--iters`` PDHG steps (whole rounds of 256) from
+the initial state, for each restart scheme in f32 and in f64.  Per iteration
+it prints launches, kernel time, wall, the device's busy share, and the
+share of the operator's two kernels (``ell_price`` + ``ell_spmv``, or
+``brick_price`` + ``brick_spmv``) in the kernel time.
 
 ``--problem ipm`` takes the interior point (``algorithm="ipm"``) through
 ``solve_computational_form`` on the dense LP at 768 × 1536 and on the
@@ -71,7 +74,6 @@ def _device_attr(avg) -> str:
 
 def profile_pdlp(args, smi) -> list[str]:
     """The PDHG rounds of the max-flow LP, each scheme in f32 and f64."""
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -86,23 +88,17 @@ def profile_pdlp(args, smi) -> list[str]:
     general, _ = chip_smoke.slice_problem(args.nodes)
     presolve(general)
     cf = build_computational_form(general, scale=True)
-    config, dev = SolverConfig(algorithm="pdlp"), torch.device("cuda")
+    config = SolverConfig(algorithm="pdlp", pdlp_matrix=args.pdlp_matrix)
+    dev = torch.device("cuda")
     p = driver._Padded.of(cf, config, dev)
-    m_pad, n_pad = p.m_pad, p.n_pad
-    d_r, d_c, csc_s = driver._pdlp_scaling(p)
-    with np.errstate(invalid="ignore"):
-        lb_h = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
-        ub_h = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
-    from types import SimpleNamespace
-
-    A64, fmt = driver._device_matrix(SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), m_pad, n_pad,
-                                     config, dev)
-    vec64 = [torch.as_tensor(v, device=dev) for v in (p.b * d_r, p.c * d_c, lb_h, ub_h)]
+    A64, vecs, _, _, _, fmt = driver._pdlp_operator(p, *driver._pdlp_scaling(p))
+    vec64 = [torch.as_tensor(v, device=dev) for v in vecs]
     eta0 = 0.9 / float(_power_norm(A64))
     rounds = max(1, args.iters // config.pdlp_round)
     its = rounds * config.pdlp_round
-    lines = [f"[profile] PDHG rounds, max-flow N={args.nodes}: m={cf.m} n={cf.n} (padded "
-             f"{m_pad}x{n_pad}) format {fmt} "
+    m_op, n_op = A64.shape
+    lines = [f"[profile] PDHG rounds, max-flow N={args.nodes}: m={cf.m} n={cf.n} (operator "
+             f"{m_op}x{n_op}) format {fmt} "
              f"{rounds} rounds of {config.pdlp_round} steps [{smi}]"]
     for dtype in (torch.float32, torch.float64):
         A = A64.astype(dtype)
@@ -129,10 +125,12 @@ def profile_pdlp(args, smi) -> list[str]:
             kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
             busy_us = sum(getattr(a, attr) for a in kernels)
             launches = sum(a.count for a in kernels)
-            # per ELL kernel: (launches, device us) summed over its instantiations
+            # per operator kernel: (launches, device us) summed over its instantiations
+            names = (("brick_price_kernel", "brick_spmv_kernel") if fmt == "bricks" else
+                     ("ell_price_kernel", "ell_spmv_kernel"))
             ell = {k: (sum(a.count for a in kernels if k in a.key),
                        sum(getattr(a, attr) for a in kernels if k in a.key))
-                   for k in ("ell_price_kernel", "ell_spmv_kernel")}
+                   for k in names}
             ell_us = sum(us for _, us in ell.values())
             tag = f"{variant} {'f32' if dtype == torch.float32 else 'f64'}"
             lines.append(
@@ -140,7 +138,7 @@ def profile_pdlp(args, smi) -> list[str]:
                 f"({prof_wall / its * 1e6:.1f} profiled); "
                 f"kernel launches {launches / its:.2f}/iter; "
                 f"kernel time {busy_us / its:.2f} us/iter; device busy share "
-                f"{busy_us / 1e6 / prof_wall:.4f}; ell_price + ell_spmv {ell_us / its:.2f} us/iter "
+                f"{busy_us / 1e6 / prof_wall:.4f}; the operator's two kernels {ell_us / its:.2f} us/iter "
                 f"= {ell_us / max(busy_us, 1e-9):.3f} of kernel time ("
                 + ", ".join(f"{k} {n / its:.3f} launches/iter {us / max(n, 1):.2f} us each"
                             for k, (n, us) in ell.items())
@@ -500,6 +498,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nodes", type=int, default=4096, help="size of the max-flow graph")
     ap.add_argument("--iters", type=int, default=600)
     ap.add_argument("--out", help="file for the full profiler tables")
+    ap.add_argument("--pdlp-matrix", choices=("auto", "bricks"), default="auto",
+                    help="with --problem pdlp: the first-order operator (SolverConfig.pdlp_matrix)")
     ap.add_argument("--crossover", action="store_true",
                     help="with --problem ipm: time the crossover too (f64 ladder only)")
     ap.add_argument("--count-ops", action="store_true",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Sweep the launch shapes of relp_tpu_torch's pricing and A·x kernels on one NVIDIA GPU.
 
-    python3 tools/sweep_torch_pricing.py [--out FILE] [--only dense|ell|spmv|lanes]
+    python3 tools/sweep_torch_pricing.py [--out FILE] [--only dense|ell|spmv|lanes|bricks]
                                          [--package-root DIR]
 
 ``dense_price`` and ``ell_price`` take their grids from a few constants of
@@ -22,7 +22,11 @@ serves from ``dense_kernels.lane_group``; the sweep puts 1 (lane by lane),
 ring of rows in flight (``RELP_DENSE_GROUP_STAGES``), at chip_smoke.py's
 lane shapes, holds
 every group size to the same bits, and prints ``lane_plan``'s own choice
-beside ``addmm``.  With ``--package-root DIR`` the package is taken from another
+beside ``addmm``.  ``--only bricks`` times ``ell_spmv`` and ``ell_price``
+on the first-order operator of the max flows (N = 1,024 and 4,096) in their
+natural order and in RCM order, beside ``brick_spmv`` and ``brick_price`` on
+the same matrices, and the two ELL kernels at the bandwidth shape in both
+orders (``sweep_bricks``).  With ``--package-root DIR`` the package is taken from another
 checkout (an earlier commit unpacked beside this one), and where that one's
 ``ell_spmv`` has no plan to sweep its one launch shape is timed alone, so the
 two can be compared within one run.  The constants in the repository are the ones this sweep
@@ -168,11 +172,138 @@ def sweep_lanes(say, us, rng, dev, build):
         for tag, fn, _, (L, m, n, size) in cases))
 
 
+def _padded(csc, m, n):
+    import scipy.sparse as sp
+
+    coo = csc.tocoo()
+    return sp.csc_matrix((coo.data, (coo.row, coo.col)), shape=(m, n))
+
+
+def _bricks_of(csc):
+    """Distinct 8 × 128 bricks the nonzeros of ``csc`` touch, rows and columns."""
+    import numpy as np
+
+    coo = csc.tocoo()
+    row = np.unique((coo.row // 8).astype(np.int64) * (csc.shape[1] // 128 + 1) + coo.col // 128)
+    col = np.unique((coo.col // 8).astype(np.int64) * (csc.shape[0] // 128 + 1) + coo.row // 128)
+    return len(row), len(col)
+
+
+def sweep_bricks(say, us, rng, dev, nodes=(1024, 4096), bandwidth=(31, 131072, 1048576)):
+    """ELL against the brick layout on the bricks path's matrices, with and
+    without RCM ordering: ``ell_spmv`` (A·x) and ``ell_price`` (c − Aᵀy) on the
+    scaled max flow in its natural order (the operator ``"auto"`` builds) and
+    in the RCM order of ``pdlp_matrix="bricks"``, beside ``brick_spmv`` and
+    ``brick_price`` on the grouped bricks of both orders and the flat bricks
+    of the RCM order; then ``ell_spmv``/``ell_price`` at the bandwidth shape
+    (Kr = 31 random columns over 131,072 rows, n = 1,048,576) in both orders,
+    with the bricks that shape would need (counted, not built).  Every launch
+    is held against its plain version; the layout's bytes sit beside it."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import chip_smoke
+    from relp_tpu_torch.ops.amatrix import ell_from_csc
+    from relp_tpu_torch.ops.brick_kernels import (
+        brick_price, brick_price_plain, brick_spmv, brick_spmv_plain,
+    )
+    from relp_tpu_torch.ops.bricks import (
+        bandwidth_perm, bricks_from_csc, grouped_bricks_from_csc,
+    )
+    from relp_tpu_torch.ops.sparse_kernels import (
+        ell_price, ell_price_plain, ell_spmv, ell_spmv_plain,
+    )
+
+    def mb(*tensors):
+        return chip_smoke._nbytes(*tensors) / 1e6
+
+    def held(label, fn, plain, tol):
+        got, want = fn(), plain()
+        err = float((got - want).abs().max())
+        if err > tol * max(1.0, float(want.abs().max())) or not torch.equal(got, fn()):
+            raise AssertionError(f"{label}: max abs err {err:.3e}, or two runs differ")
+        return us(fn)
+
+    for n_nodes in nodes:
+        _, csc_nat, _, _ = chip_smoke.first_order_operator(n_nodes, dev)
+        grouped, csc_rcm, _, _ = chip_smoke.first_order_operator(n_nodes, dev, "bricks")
+        mp, np_ = grouped.shape
+        csc_nat = _padded(csc_nat, mp, np_)
+        ops = {"natural": (ell_from_csc(csc_nat, mp, np_, device=dev),
+                           grouped_bricks_from_csc(csc_nat, mp, np_, device=dev), None),
+               "RCM": (ell_from_csc(csc_rcm, mp, np_, device=dev), grouped,
+                       bricks_from_csc(csc_rcm, mp, np_, device=dev))}
+        for order, csc in (("natural", csc_nat), ("RCM", csc_rcm)):
+            rb, cb = _bricks_of(csc)
+            say(f"[sweep] bricks max flow N={n_nodes} {mp}x{np_} nnz {csc.nnz} {order} order: "
+                f"{rb} row bricks, {cb} column bricks; ELL K = {ops[order][0].data_t.shape[0]}, "
+                f"Kr = {ops[order][0].rdata_t.shape[0]}")
+        x64 = torch.as_tensor(rng.standard_normal(np_), device=dev)
+        y64 = torch.as_tensor(rng.standard_normal(mp), device=dev)
+        c64 = torch.as_tensor(rng.standard_normal(np_), device=dev)
+        for dtype, tol in ((torch.float64, chip_smoke.F64_TOL), (torch.float32, chip_smoke.F32_TOL)):
+            x, y, c = x64.to(dtype), y64.to(dtype), c64.to(dtype)
+            tag = f"N={n_nodes} {'f32' if dtype == torch.float32 else 'f64'}"
+            for order, (ell, grp, flat) in ops.items():
+                e = ell.astype(dtype)
+                cells = [
+                    f"ell_spmv {held('ell_spmv', lambda: ell_spmv(e.rdata_t, e.rcols_t, x), lambda: ell_spmv_plain(e.rdata_t, e.rcols_t, x), tol):.2f} us "
+                    f"({mb(e.rdata_t, e.rcols_t):.2f} MB)",
+                    f"ell_price {held('ell_price', lambda: ell_price(e.data_t, e.rows_t, y, c), lambda: ell_price_plain(e.data_t, e.rows_t, y, c), tol):.2f} us "
+                    f"({mb(e.data_t, e.rows_t):.2f} MB)"]
+                for label, op in (("grouped", grp), ("flat", flat)):
+                    if op is None:
+                        continue
+                    if label == "grouped":
+                        rg, rt, cg, ct = op.rgroups, op.rtile, op.cgroups, op.ctile
+                    else:
+                        rg, rt, cg, ct = ((op.rdata, op.ridx),), None, ((op.cdata, op.cidx),), None
+                    rg = [(d.to(dtype), i) for d, i in rg]
+                    cg = [(d.to(dtype), i) for d, i in cg]
+                    cells.append(
+                        f"brick_spmv {label} {held('brick_spmv', lambda: brick_spmv(rg, x, rt), lambda: brick_spmv_plain(rg, x, rt), tol):.2f} us "
+                        f"({mb(*(t for g in rg for t in g)):.1f} MB)")
+                    cells.append(
+                        f"brick_price {label} {held('brick_price', lambda: brick_price(cg, y, c, ct), lambda: brick_price_plain(cg, y, c, ct), tol):.2f} us "
+                        f"({mb(*(t for g in cg for t in g)):.1f} MB)")
+                say(f"[sweep] bricks {tag} {order} order: " + "; ".join(cells))
+        del ops, grouped
+        torch.cuda.empty_cache()
+
+    # the bandwidth shape, natural and RCM order
+    Kr, m, n = bandwidth
+    rows = np.repeat(np.arange(m), Kr)
+    cols = rng.integers(0, n, m * Kr)
+    csr = sp.csr_matrix((rng.standard_normal(m * Kr), (rows, cols)), shape=(m, n))
+    csc_nat = csr.tocsc()
+    rp, cp = bandwidth_perm(csc_nat)
+    csc_rcm = csc_nat[rp][:, cp].tocsc()
+    x64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+    y64 = torch.as_tensor(rng.standard_normal(m), device=dev)
+    c64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+    for order, csc in (("natural", csc_nat), ("RCM", csc_rcm)):
+        rb, cb = _bricks_of(csc)
+        ell = ell_from_csc(csc, m, n, device=dev)
+        say(f"[sweep] bandwidth Kr={Kr} m={m} n={n} {order} order: {rb} row bricks, {cb} "
+            f"column bricks ({rb * 8192 / 1e9:.1f} / {cb * 8192 / 1e9:.1f} GB in f64: not built)")
+        for dtype, tol in ((torch.float64, chip_smoke.F64_TOL), (torch.float32, chip_smoke.F32_TOL)):
+            e = ell.astype(dtype)
+            x, y, c = x64.to(dtype), y64.to(dtype), c64.to(dtype)
+            say(f"[sweep] bandwidth {'f32' if dtype == torch.float32 else 'f64'} {order} order: "
+                f"ell_spmv {held('ell_spmv', lambda: ell_spmv(e.rdata_t, e.rcols_t, x), lambda: ell_spmv_plain(e.rdata_t, e.rcols_t, x), tol):.2f} us "
+                f"({mb(e.rdata_t, e.rcols_t, x):.1f} MB); ell_price c-d "
+                f"{held('ell_price', lambda: ell_price(e.data_t, e.rows_t, y, c), lambda: ell_price_plain(e.data_t, e.rows_t, y, c), tol):.2f} us "
+                f"(K = {e.data_t.shape[0]}, {mb(e.data_t, e.rows_t, y, c):.1f} MB)")
+        del ell, e
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="file for a copy of the lines printed")
-    ap.add_argument("--only", choices=("dense", "ell", "spmv", "lanes"),
-                    help="sweep one kernel (default: all four)")
+    ap.add_argument("--only", choices=("dense", "ell", "spmv", "lanes", "bricks"),
+                    help="sweep one kernel (default: all five)")
     ap.add_argument("--package-root", default=str(ROOT),
                     help="checkout to import relp_tpu_torch from (default: this one)")
     args = ap.parse_args(argv)
@@ -296,6 +427,10 @@ def main(argv=None) -> int:
     # ---- the lane kernels: lanes a block serves x depth of the ring of rows
     if want("lanes"):
         sweep_lanes(say, us, rng, dev, build)
+
+    # ---- ELL against bricks, with and without RCM ordering
+    if want("bricks"):
+        sweep_bricks(say, us, rng, dev)
 
     if args.out:
         out = Path(args.out)
