@@ -24,7 +24,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              256 × 2,048 max-flow operator; ``probe_scale`` at [8, 128];
              ``brick_spmv`` (A·x) and ``brick_price`` (c − Aᵀy) on the bricks
              path's operator (the scaled N = 4,096 max flow in RCM order, 4,096
-             × 32,768) in its grouped layout and in the flat one;
+             × 32,768, its bricks compacted to their nonzeros) in its grouped
+             layout and in the flat one, the bound counted from the nonzeros;
              ``ell_price_select`` and ``dense_price_select`` (the pricing
              pass with the entering column chosen in the kernel) on the two
              operators with the state of a solve cut at 600 iterations, and
@@ -75,7 +76,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              per iteration).
 9. bricks  — the first-order engine on the brick operator
              (``pdlp_matrix="bricks"``: the grouped 8 × 128 bricks of the scaled
-             matrix in RCM order) through ``api.solve``: the max flows at
+             matrix in RCM order, compacted to their nonzeros on the card)
+             through ``api.solve``: the max flows at
              N = 4,096 and N = 1,024 without crossover, each run in turns with
              the default operator (default, bricks, bricks, default: what
              ``"auto"`` was decided on), the objective within 1e-5 relative of
@@ -974,10 +976,12 @@ def _csr_tensor(csr, dev, dtype):
 def _kernels_bricks(smi, dev, rng):
     """``brick_spmv`` (A·x) and ``brick_price`` (c − Aᵀy) on the operator of
     the bricks path, the RCM-ordered N = 4,096 max flow, in the grouped layout
-    the driver builds and in the flat one, f64 and f32.  The bound reads every
-    brick (empty slots too) and every id once, the vector, c and the output
-    once; the yardstick is ``torch.mv`` on a sparse CSR of the same matrix (or
-    of its transpose)."""
+    the driver builds and in the flat one, f64 and f32.  The bound reads the
+    compacted bricks once (each nonzero's value and position word, the tile
+    offsets and ``tile_of``), the vector, c and the output once: what these
+    inputs need, not the dense 8 × 128 bricks the TPU kernels read (printed
+    beside it); the yardstick is ``torch.mv`` on a sparse CSR of the same
+    matrix (or of its transpose)."""
     import torch
 
     from relp_tpu_torch.ops.brick_kernels import (
@@ -988,10 +992,18 @@ def _kernels_bricks(smi, dev, rng):
     grouped, csc, _, _ = first_order_operator(N_NODES, dev, "bricks")
     mp, np_ = grouped.shape
     flat = bricks_from_csc(csc, mp, np_, device=dev)
-    layouts = {  # label -> (row groups, their store order, column groups, theirs)
-        "grouped": (grouped.rgroups, grouped.rtile, grouped.cgroups, grouped.ctile),
-        "flat": (((flat.rdata, flat.ridx),), None, ((flat.cdata, flat.cidx),), None),
-    }
+    layouts = {"grouped": grouped, "flat": flat}
+    for label, op in layouts.items():
+        if label == "grouped":
+            slots = [sum((e - s) * b for s, e, b in g) for g in (op.rgroups, op.cgroups)]
+        else:
+            slots = [op.rtiles.tiles * op.rslots, op.ctiles.tiles * op.cslots]
+        held = _nbytes(*(t for side in (op.rtiles, op.ctiles)
+                         for t in (side.ptr, side.vals, side.pos, side.tile_of)))
+        print(f"[kernels] brick operator {label}: {held / 1e6:.3f} MB on the card for both "
+              f"orientations ({op.rtiles.vals.numel()} nonzeros); the dense bricks of its "
+              f"{slots[0]}/{slots[1]} slots would be {sum(slots) * 8 * 128 * 8 / 1e6:.1f} MB "
+              f"in f64 (not built)")
     x = torch.as_tensor(rng.standard_normal(np_), device=dev)
     y = torch.as_tensor(rng.standard_normal(mp), device=dev)
     c = torch.as_tensor(rng.standard_normal(np_), device=dev)
@@ -1001,25 +1013,22 @@ def _kernels_bricks(smi, dev, rng):
         tag = "f32" if dtype == torch.float32 else "f64"
         xd, yd, cd = x.to(dtype), y.to(dtype), c.to(dtype)
         csr, csr_t = _csr_tensor(csc, dev, dtype), _csr_tensor(csc.T, dev, dtype)
-        for label, (rg, rtile, cg, ctile) in layouts.items():
-            rg = [(d.to(dtype), i) for d, i in rg]
-            cg = [(d.to(dtype), i) for d, i in cg]
-            r_slots = sum(i.numel() for _, i in rg)
-            c_slots = sum(i.numel() for _, i in cg)
-            shape = (f"{label} {len(rg)}/{len(cg)} groups, {r_slots}/{c_slots} brick slots, "
-                     f"{mp}x{np_}")
+        for label, op in layouts.items():
+            rt, ct = op.astype(dtype).rtiles, op.astype(dtype).ctiles
+            shape = (f"{label}, {rt.vals.numel()} nonzeros in {rt.tiles}/{ct.tiles} tiles of "
+                     f"{rt.lanes}/{ct.lanes} lanes, {mp}x{np_}")
             report[("spmv", tag, label)] = _compare(
                 f"brick_spmv {tag} A·x {shape}",
-                lambda: brick_spmv(rg, xd, rtile), lambda: brick_spmv_plain(rg, xd, rtile),
-                tol, smi, nbytes=_nbytes(*(t for g in rg for t in g), xd, rtile) + mp * xd.element_size(),
-                flops=2 * sum(d.numel() for d, _ in rg), tag=tag,
-                library_fn=lambda: torch.mv(csr, xd), library=mv, same_bits=True, plain_runs=10)
+                lambda: brick_spmv(rt, xd), lambda: brick_spmv_plain(rt, xd), tol, smi,
+                nbytes=_nbytes(rt.ptr, rt.vals, rt.pos, rt.tile_of, xd) + mp * xd.element_size(),
+                flops=2 * rt.vals.numel(), tag=tag, library_fn=lambda: torch.mv(csr, xd),
+                library=mv, same_bits=True)
             report[("price", tag, label)] = _compare(
                 f"brick_price {tag} c-Aᵀy {shape}",
-                lambda: brick_price(cg, yd, cd, ctile), lambda: brick_price_plain(cg, yd, cd, ctile),
-                tol, smi, nbytes=_nbytes(*(t for g in cg for t in g), yd, cd, cd, ctile),
-                flops=2 * sum(d.numel() for d, _ in cg), tag=tag,
-                library_fn=lambda: torch.mv(csr_t, yd), library=mv, same_bits=True, plain_runs=10)
+                lambda: brick_price(ct, yd, cd), lambda: brick_price_plain(ct, yd, cd), tol, smi,
+                nbytes=_nbytes(ct.ptr, ct.vals, ct.pos, ct.tile_of, yd, cd, cd),
+                flops=2 * ct.vals.numel(), tag=tag, library_fn=lambda: torch.mv(csr_t, yd),
+                library=mv, same_bits=True)
         del csr, csr_t
     del grouped, flat, layouts
     torch.cuda.empty_cache()
@@ -1336,11 +1345,12 @@ def phase_bricks(smi, launches):
             if matrix == "bricks" and min(PATHS[path].values()) < met.fo_iterations:
                 raise AssertionError(f"[bricks] launches {PATHS[path]} for "
                                      f"{met.fo_iterations} first-order iterations")
-            walls[matrix].append((met.wall_s, met.fo_setup_s, met.fo_iterations, wall))
+            walls[matrix].append((met.wall_s, met.fo_setup_s, met.fo_iterations, wall,
+                                  torch.cuda.max_memory_allocated() / 2**20))
         print(f"[bricks] N={n_nodes} in turns (solve wall s, of it set-up s, iterations, "
-              "us per iteration after the set-up, api wall s): " + "; ".join(
+              "us per iteration after the set-up, api wall s, peak MiB): " + "; ".join(
                   f"{k} " + ", ".join(f"({w:.3f}, {su:.3f}, {it}, {(w - su) / it * 1e6:.1f}, "
-                                      f"{a:.3f})" for w, su, it, a in v)
+                                      f"{a:.3f}, {mem:.0f})" for w, su, it, a, mem in v)
                   for k, v in walls.items()) + f" [{smi}]")
 
     # the crossover from the brick operator's point: scipy's vertex exactly

@@ -1,41 +1,42 @@
-// Hopper (sm_90a) kernels of the brick layout (relp_tpu_torch/ops/bricks.py).
+// Hopper (sm_90a) kernels of the brick operator (relp_tpu_torch/ops/bricks.py).
 //
-// Both compute the brick contraction over one or more groups of 8-row tiles,
-// each group a padded slot array data[Tg, Bg, 8, 128] with column-block ids
-// idx[Tg, Bg] (empty slots: zero bricks on block 0):
-//
-//   out[tile_of[s] * 8 + r] = sum_{b, l} data_g[s - s_g, b, r, l] * v[idx_g[s - s_g, b] * 128 + l]
-//
-// for the sorted tile position s in group g (first position s_g).
-//   brick_spmv:  y = A x over the row-tile bricks.  Replaces brick_spmv_pallas
+//   brick_spmv:  y = A x over the row tiles.  Replaces brick_spmv_pallas
 //                (relp_tpu/ops/pallas_kernels.py).
-//   brick_price: d = c - A^T y over the transposed (column-tile) bricks, the
-//                subtraction fused; without c the sum alone.  Replaces
-//                brick_pricing_pallas (relp_tpu/ops/pallas_kernels.py).
-// One group is the flat layout (BrickMatrix, tile_of null: s is the tile);
-// several are the grouped layout (GroupedBrickMatrix), whose tiles are sorted
-// by brick count and which the JAX package un-sorts with a gather after the
-// contraction.  Here the groups' descriptors travel in the launch's parameters
-// and each tile stores its 8 rows at its original place, tile_of[s]: one
-// launch per product and no gather launch after it.
+//   brick_price: d = c - A^T y over the column tiles, the subtraction fused;
+//                without c the sum alone.  Replaces brick_pricing_pallas
+//                (relp_tpu/ops/pallas_kernels.py).
 //
-// What bounds them: bytes.  Every brick is 8 x 128 values (8 KB in f64, 4 KB
-// in f32) read once, each with a 128-lane row of v that L2 serves; an empty
-// slot is read like a full one.  At the N = 4,096 max flow under RCM ordering
-// a product reads ~200 MB, ~60 us at 3.35 TB/s.  The TPU kernel keeps the
-// whole v in VMEM and walks 16 tiles per program with a scalar-prefetched id
-// per slot.  Here
-// - a block of 128 threads takes one tile; thread l owns lane l of every
-//   brick: per slot it loads v[id * 128 + l] (the 128-lane row gather,
-//   coalesced) and the brick's 8 rows at lane l (8 coalesced 512- or
-//   1,024-byte rows) into 8 accumulators, so every byte of a brick is one
-//   coalesced read and nothing is staged;
-// - the 128 lanes then meet in a fixed order: a butterfly of shuffles inside
-//   each warp, the four warps' sums added in warp order by one thread per
-//   row.  No atomics: two runs give the same bits (another order than the
+// Both read one orientation's compacted bricks (ops/brick_kernels.py,
+// BrickTiles): the tiles of 8 rows in the layout's order (the grouped
+// layout's heavy-first sort, or the natural one), ptr[s] .. ptr[s + 1] the
+// nonzeros of tile s in the bricks' slot order, row-major inside each brick,
+// each a value and one position word col * 8 + row (col = block id * 128 +
+// lane, the element of v it multiplies; row, 3 bits, the row in the tile):
+//
+//   out[tile_of[s] * 8 + r] = sum over k in tile s with pos[k] & 7 == r of vals[k] * v[pos[k] >> 3]
+//
+// tile_of null is the identity (the flat layout).  Each tile stores its 8
+// rows at its original place: one launch per product, no un-sort after it.
+//
+// What bounds them: bytes, counted from the nonzeros.  The TPU kernels read
+// every value of dense 8 x 128 bricks, because a TPU gathers elements
+// serially; at the N = 4,096 max flow a brick holds 2-3 nonzeros of its
+// 1,024 values, so that layout moves ~240 MB a product where the nonzeros,
+// one position word each, the offsets, tile_of and the vectors are ~1.2 MB.
+// On Hopper an element gather of v (a few hundred KB) is an L2 hit, so here
+// - G lanes (8, 16 or 32: the wrapper picks about one nonzero a lane for a
+//   mean tile) take one tile, 128 / G tiles a block of 128 threads.  Lane j
+//   takes the tile's nonzeros j, j + G, ... (coalesced reads of vals and
+//   pos), loads a batch of two before the first gather, gathers v through
+//   the read-only path and adds into the one of 8 row accumulators its row
+//   names, by predicated adds in registers;
+// - the G lanes then meet in a fixed order: a reduce-scatter by halves (4,
+//   2 and 1 shuffles leave each lane one row), then a butterfly over the
+//   lanes that hold the same row; one lane a row stores.  No atomics and
+//   nothing staged: two runs give the same bits (another order than the
 //   plain version's sum, so the two agree within rounding).
-// v is gathered through the read-only path (__ldg); the grid is one block per
-// tile, heavy tiles first under the grouped layout's sort.
+// An empty padded slot of the dense layout has no entry, so slot padding
+// adds nothing to what a product reads.
 //
 // Built by relp_tpu_torch/ops/cuda_build.py into a shared library with a
 // plain C interface; every entry point launches on the given stream, does
@@ -44,135 +45,146 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace relp {
-
-// one group as the host passes it (ops/brick_kernels.py: _Group); outside the
-// unnamed namespace, so that the extern "C" entry points taking it keep
-// external linkage
-struct BrickGroup {
-  const void* data;  // T[tiles, slots, 8, 128]
-  const void* idx;   // int32[tiles, slots]
-  int64_t tiles;
-  int64_t slots;
-};
-
-}  // namespace relp
-
 namespace {
 
-using relp::BrickGroup;
+// nonzeros a lane loads before its first gather: tools/sweep_torch_pricing.py
+// --only bricks sweeps 2, 4 and 8; 2 was best or tied on both sides of the
+// max flows (a column tile has one nonzero a lane, a row tile about four)
+#ifndef RELP_BRICK_BATCH
+#define RELP_BRICK_BATCH 2
+#endif
 
-constexpr int kTR = 8;          // rows of a tile (the brick's 8 axis)
-constexpr int kTC = 128;        // lanes of a brick; threads of a block
-constexpr int kWarps = kTC / 32;
-constexpr int kMaxGroups = 16;  // ops/brick_kernels.py: MAX_GROUPS
+constexpr int kTR = 8;          // rows of a tile
+constexpr int kThreads = 128;   // threads of a block
+constexpr int kBatch = RELP_BRICK_BATCH;
+constexpr unsigned kFull = 0xffffffffu;
 
-// the groups as the kernel reads them, passed by value in the launch
-template <typename T>
-struct GroupTable {
-  const T* data[kMaxGroups];
-  const int32_t* idx[kMaxGroups];
-  int64_t first[kMaxGroups + 1];  // first sorted tile of each group; [count] = all tiles
-  int slots[kMaxGroups];
-  int count;
-};
-
-template <typename T>
-__device__ __forceinline__ void contract_tile(const GroupTable<T>& g,
-                                              const int32_t* __restrict__ tile_of,
-                                              const T* __restrict__ v,
-                                              const T* __restrict__ c,
-                                              T* __restrict__ out) {
-  const int64_t s = blockIdx.x;
-  int k = 0;
-  while (k + 1 < g.count && s >= g.first[k + 1]) ++k;
-  const int64_t local = s - g.first[k];
-  const int B = g.slots[k];
-  const int l = threadIdx.x;
-  const int32_t* __restrict__ ids = g.idx[k] + local * B;
-  const T* __restrict__ brick = g.data[k] + local * B * (kTR * kTC) + l;
+template <typename T, int G>
+__device__ __forceinline__ void contract_tiles(const int32_t* __restrict__ ptr,
+                                               const T* __restrict__ vals,
+                                               const int32_t* __restrict__ pos,
+                                               const int32_t* __restrict__ tile_of,
+                                               const T* __restrict__ v,
+                                               const T* __restrict__ c,
+                                               T* __restrict__ out, int tiles) {
+  static_assert(G == 8 || G == 16 || G == 32, "8, 16 or 32 lanes a tile");
+  const int lane = threadIdx.x & (G - 1);
+  const int s = blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  // a tile past the end still joins its warp's shuffles, with zeros
+  const bool live = s < tiles;
 
   T acc[kTR];
 #pragma unroll
   for (int r = 0; r < kTR; ++r) acc[r] = T(0);
-#pragma unroll 2
-  for (int b = 0; b < B; ++b) {
-    const T* __restrict__ p = brick + static_cast<int64_t>(b) * (kTR * kTC);
-    T val[kTR];
+  if (live) {
+    const int end = __ldg(ptr + s + 1);
+    for (int k0 = __ldg(ptr + s) + lane; k0 < end; k0 += kBatch * G) {
+      T a[kBatch], x[kBatch];
+      int p[kBatch];
 #pragma unroll
-    for (int r = 0; r < kTR; ++r) val[r] = __ldg(p + r * kTC);
-    const T xv = __ldg(v + static_cast<int64_t>(__ldg(ids + b)) * kTC + l);
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + u * G;
+        a[u] = k < end ? __ldg(vals + k) : T(0);
+        p[u] = k < end ? __ldg(pos + k) : -1;
+      }
 #pragma unroll
-    for (int r = 0; r < kTR; ++r) acc[r] += val[r] * xv;
+      for (int u = 0; u < kBatch; ++u) x[u] = p[u] >= 0 ? __ldg(v + (p[u] >> 3)) : T(0);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int row = p[u] & 7;
+#pragma unroll
+        for (int r = 0; r < kTR; ++r) {
+          if (p[u] >= 0 && r == row) acc[r] += a[u] * x[u];
+        }
+      }
+    }
   }
 
-  // the 128 lanes meet in a fixed order: a butterfly in each warp, then the
-  // warps in order
+  // reduce-scatter by halves: the lanes of the upper half keep rows 4-7 and
+  // take their partner's, the lower half rows 0-3; then pairs of rows, then
+  // one row a lane: row = lane / (G / 8)
+  {
+    const bool up = lane & (G / 2);
 #pragma unroll
-  for (int r = 0; r < kTR; ++r) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+    for (int i = 0; i < 4; ++i) {
+      const T send = up ? acc[i] : acc[i + 4];
+      const T keep = up ? acc[i + 4] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(kFull, send, G / 2);
+    }
   }
-  __shared__ T part[kWarps][kTR];
-  const int w = l >> 5;
-  if ((l & 31) == 0) {
+  {
+    const bool up = lane & (G / 4);
 #pragma unroll
-    for (int r = 0; r < kTR; ++r) part[w][r] = acc[r];
+    for (int i = 0; i < 2; ++i) {
+      const T send = up ? acc[i] : acc[i + 2];
+      const T keep = up ? acc[i + 2] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(kFull, send, G / 4);
+    }
   }
-  __syncthreads();
-  if (l < kTR) {
-    T sum = part[0][l];
+  {
+    const bool up = lane & (G / 8);
+    const T send = up ? acc[0] : acc[1];
+    const T keep = up ? acc[1] : acc[0];
+    acc[0] = keep + __shfl_xor_sync(kFull, send, G / 8);
+  }
+  // the G / 8 lanes that hold one row: a butterfly
 #pragma unroll
-    for (int i = 1; i < kWarps; ++i) sum += part[i][l];
+  for (int off = G / 16; off > 0; off >>= 1) acc[0] += __shfl_xor_sync(kFull, acc[0], off);
+  if (live && (lane & (G / 8 - 1)) == 0) {
     const int64_t tile = tile_of ? static_cast<int64_t>(tile_of[s]) : s;
-    const int64_t o = tile * kTR + l;
-    out[o] = c ? c[o] - sum : sum;
+    const int64_t o = tile * kTR + lane / (G / 8);
+    out[o] = c ? c[o] - acc[0] : acc[0];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTC) brick_spmv_kernel(GroupTable<T> g,
-                                                         const int32_t* tile_of,
-                                                         const T* x, T* y) {
-  contract_tile<T>(g, tile_of, x, nullptr, y);
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads) brick_spmv_kernel(const int32_t* ptr, const T* vals,
+                                                              const int32_t* pos,
+                                                              const int32_t* tile_of,
+                                                              const T* x, T* y, int tiles) {
+  contract_tiles<T, G>(ptr, vals, pos, tile_of, x, nullptr, y, tiles);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTC) brick_price_kernel(GroupTable<T> g,
-                                                          const int32_t* tile_of,
-                                                          const T* y, const T* c, T* d) {
-  contract_tile<T>(g, tile_of, y, c, d);
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads) brick_price_kernel(const int32_t* ptr, const T* vals,
+                                                               const int32_t* pos,
+                                                               const int32_t* tile_of,
+                                                               const T* y, const T* c, T* d,
+                                                               int tiles) {
+  contract_tiles<T, G>(ptr, vals, pos, tile_of, y, c, d, tiles);
+}
+
+template <typename T, bool kPrice, int G>
+void launch_lanes(const int32_t* ptr, const T* vals, const int32_t* pos, const int32_t* tile_of,
+                  const T* v, const T* c, T* out, int tiles, cudaStream_t st) {
+  constexpr int per_block = kThreads / G;
+  const unsigned blocks = static_cast<unsigned>((tiles + per_block - 1) / per_block);
+  if constexpr (kPrice) {
+    brick_price_kernel<T, G><<<blocks, kThreads, 0, st>>>(ptr, vals, pos, tile_of, v, c, out,
+                                                          tiles);
+  } else {
+    brick_spmv_kernel<T, G><<<blocks, kThreads, 0, st>>>(ptr, vals, pos, tile_of, v, out, tiles);
+  }
 }
 
 template <typename T, bool kPrice>
-int launch(const BrickGroup* groups, int count, const void* tile_of, const void* v,
-           const void* c, void* out, int64_t tiles, void* stream) {
-  if (count < 1 || count > kMaxGroups || tiles < 1 || tiles > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  GroupTable<T> g{};
-  int64_t first = 0;
-  for (int k = 0; k < count; ++k) {
-    if (groups[k].slots < 1 || groups[k].tiles < 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    g.data[k] = static_cast<const T*>(groups[k].data);
-    g.idx[k] = static_cast<const int32_t*>(groups[k].idx);
-    g.slots[k] = static_cast<int>(groups[k].slots);
-    g.first[k] = first;
-    first += groups[k].tiles;
-  }
-  g.first[count] = first;
-  g.count = count;
-  if (first != tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
+int launch(const void* ptr, const void* vals, const void* pos, const void* tile_of,
+           const void* v, const void* c, void* out, int64_t tiles, int lanes, void* stream) {
+  if (tiles < 1 || tiles > 0x7fff0000) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* p = static_cast<const int32_t*>(ptr);
+  const auto* a = static_cast<const T*>(vals);
+  const auto* w = static_cast<const int32_t*>(pos);
   const auto* to = static_cast<const int32_t*>(tile_of);
-  if constexpr (kPrice) {
-    brick_price_kernel<T><<<static_cast<unsigned>(tiles), kTC, 0, st>>>(
-        g, to, static_cast<const T*>(v), static_cast<const T*>(c), static_cast<T*>(out));
-  } else {
-    brick_spmv_kernel<T><<<static_cast<unsigned>(tiles), kTC, 0, st>>>(
-        g, to, static_cast<const T*>(v), static_cast<T*>(out));
+  const auto* vv = static_cast<const T*>(v);
+  const auto* cc = static_cast<const T*>(c);
+  auto* o = static_cast<T*>(out);
+  const int t = static_cast<int>(tiles);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 8: launch_lanes<T, kPrice, 8>(p, a, w, to, vv, cc, o, t, st); break;
+    case 16: launch_lanes<T, kPrice, 16>(p, a, w, to, vv, cc, o, t, st); break;
+    case 32: launch_lanes<T, kPrice, 32>(p, a, w, to, vv, cc, o, t, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -181,26 +193,30 @@ int launch(const BrickGroup* groups, int count, const void* tile_of, const void*
 
 extern "C" {
 
-int relp_brick_spmv_f32(const BrickGroup* groups, int count, const void* tile_of,
-                        const void* x, const void* c, void* y, int64_t tiles, void* stream) {
+int relp_brick_spmv_f32(const void* ptr, const void* vals, const void* pos, const void* tile_of,
+                        const void* x, const void* c, void* y, int64_t tiles, int lanes,
+                        void* stream) {
   (void)c;
-  return launch<float, false>(groups, count, tile_of, x, nullptr, y, tiles, stream);
+  return launch<float, false>(ptr, vals, pos, tile_of, x, nullptr, y, tiles, lanes, stream);
 }
 
-int relp_brick_spmv_f64(const BrickGroup* groups, int count, const void* tile_of,
-                        const void* x, const void* c, void* y, int64_t tiles, void* stream) {
+int relp_brick_spmv_f64(const void* ptr, const void* vals, const void* pos, const void* tile_of,
+                        const void* x, const void* c, void* y, int64_t tiles, int lanes,
+                        void* stream) {
   (void)c;
-  return launch<double, false>(groups, count, tile_of, x, nullptr, y, tiles, stream);
+  return launch<double, false>(ptr, vals, pos, tile_of, x, nullptr, y, tiles, lanes, stream);
 }
 
-int relp_brick_price_f32(const BrickGroup* groups, int count, const void* tile_of,
-                         const void* y, const void* c, void* d, int64_t tiles, void* stream) {
-  return launch<float, true>(groups, count, tile_of, y, c, d, tiles, stream);
+int relp_brick_price_f32(const void* ptr, const void* vals, const void* pos, const void* tile_of,
+                         const void* y, const void* c, void* d, int64_t tiles, int lanes,
+                         void* stream) {
+  return launch<float, true>(ptr, vals, pos, tile_of, y, c, d, tiles, lanes, stream);
 }
 
-int relp_brick_price_f64(const BrickGroup* groups, int count, const void* tile_of,
-                         const void* y, const void* c, void* d, int64_t tiles, void* stream) {
-  return launch<double, true>(groups, count, tile_of, y, c, d, tiles, stream);
+int relp_brick_price_f64(const void* ptr, const void* vals, const void* pos, const void* tile_of,
+                         const void* y, const void* c, void* d, int64_t tiles, int lanes,
+                         void* stream) {
+  return launch<double, true>(ptr, vals, pos, tile_of, y, c, d, tiles, lanes, stream);
 }
 
 }  // extern "C"

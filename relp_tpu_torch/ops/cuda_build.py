@@ -48,12 +48,13 @@ SIGNATURES = {
                              _P, _I32, _I32, _P],
     "relp_dense_price_f64": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P,
                              _P, _I32, _I32, _P],
-    # brick_kernels.cu: BrickGroup[count], count, tile_of (null: identity), v,
-    # c (null: the sum alone; brick_spmv ignores it), out, tiles, stream
-    "relp_brick_spmv_f32": [_P, _I32, _P, _P, _P, _P, _I64, _P],
-    "relp_brick_spmv_f64": [_P, _I32, _P, _P, _P, _P, _I64, _P],
-    "relp_brick_price_f32": [_P, _I32, _P, _P, _P, _P, _I64, _P],
-    "relp_brick_price_f64": [_P, _I32, _P, _P, _P, _P, _I64, _P],
+    # brick_kernels.cu: ptr, vals, pos, tile_of (null: identity), v, c (null:
+    # the sum alone; brick_spmv ignores it), out, tiles, lanes a tile
+    # (ops/brick_kernels.py: tile_lanes), stream
+    "relp_brick_spmv_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
+    "relp_brick_spmv_f64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
+    "relp_brick_price_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
+    "relp_brick_price_f64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
     # probe_kernels.cu: x, out, n, stream
     "relp_probe_scale_f32": [_P, _P, _I64, _P],
     "relp_probe_scale_f64": [_P, _P, _I64, _P],

@@ -310,8 +310,9 @@ def _pdlp_operator(p: _Padded, d_r, d_c, csc_s):
     the JAX package reports for a first-order solve), ``fo_matrix`` this one.
 
     "auto" and "ell" take the operator matrix_format picks, on every device:
-    the brick products lost to it end to end on an H100 (PERF.md §6, the max
-    flows at N = 1,024 and N = 4,096), so "auto" never picks bricks here.  The
+    on an H100 the bricks at best tie it end to end (PERF.md §6, the max
+    flows at N = 1,024 and N = 4,096: RCM costs set-up, and at N = 1,024
+    iterations), so "auto" never picks bricks here.  The
     JAX package's "auto" takes them on any accelerator, for the TPU's serial
     element gathers."""
     from types import SimpleNamespace

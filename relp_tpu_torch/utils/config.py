@@ -139,12 +139,13 @@ class SolverConfig:
     # because the TPU emulates f64)
     ipm_ladder: str = "auto"
     # device matrix of the first-order engine: "bricks" the grouped 8 × 128
-    # brick operator (ops/bricks.py) in RCM order; "auto" and "ell" the
-    # operator matrix_format picks, on every device: on an H100 a brick
-    # product reads ~240 MB where ELL reads < 2 MB at the N = 4,096 max flow,
-    # and the solve took 1.50 s against ELL's 0.89-0.94 s (PERF.md §6; the
-    # JAX package's "auto" takes bricks on any accelerator, for the TPU's
-    # serial element gathers)
+    # brick operator (ops/bricks.py) in RCM order, its bricks compacted to
+    # their nonzeros; "auto" and "ell" the operator matrix_format picks, on
+    # every device: on an H100 the bricks at best tie ELL end to end (the
+    # N = 4,096 max flow 1.02 s against ELL's 0.86-1.15 s, more set-up for
+    # RCM, and more iterations at N = 1,024; PERF.md §6; the JAX package's
+    # "auto" takes bricks on any accelerator, for the TPU's serial element
+    # gathers)
     pdlp_matrix: str = "auto"
     # temporary-box magnitude of the dual start: a column with no finite
     # bound on the side sign(c_j) asks for gets ±dual_box there (the data is

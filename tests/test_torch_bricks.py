@@ -7,7 +7,11 @@ the CPU (the port's kernels run their plain versions there):
 
 - the layout arrays (flat with and without ``bucket``, grouped, the group
   breaks, the RCM orders) equal the JAX package's exactly, on the generated
-  cases of tests/test_bricks.py;
+  cases of tests/test_bricks.py and on edge cases (an empty tile, a tile
+  whose nonzeros span every slot, a nonzero at the last column): the
+  operators hold the compact form, which ``bricks.dense_bricks`` expands
+  back to the JAX package's arrays, and the compact form holds each
+  nonzero once, whatever the slot padding;
 - ``matvec``, ``rmatvec`` and ``price`` within 1e-12 of the JAX operators
   (the sums run in another order), and the f64 re-layout bit for bit;
 - the plain products in f32 against ``brick_spmv_pallas`` and
@@ -69,6 +73,34 @@ def _skewed():
     return sp.csc_matrix(A)
 
 
+def _empty_tile():
+    """A random 256 × 384 whose row tile 5 and column tile 9 are empty."""
+    A = sp.random(256, 384, density=0.05, random_state=5, format="lil")
+    A[40:48, :] = 0
+    A[:, 72:80] = 0
+    return sp.csc_matrix(A)
+
+
+def _widest_tile():
+    """Row tile 0 touches every column block and column tile 0 every row
+    block: the tiles whose nonzeros span the most slots."""
+    A = sp.random(384, 640, density=0.005, random_state=6, format="lil")
+    for b in range(5):
+        A[b % 8, 128 * b + 3 * b] = 1.0 + b
+    for b in range(3):
+        A[128 * b + 7, b % 8] = -2.0 - b
+    return sp.csc_matrix(A)
+
+
+def _last_column():
+    """Nonzeros at the last row and the last column: the largest position words."""
+    A = sp.random(128, 512, density=0.01, random_state=8, format="lil")
+    A[127, 511] = 2.5
+    A[0, 511] = -1.5
+    A[127, 0] = 0.5
+    return sp.csc_matrix(A)
+
+
 def _shuffled_blocks():
     """tests/test_bricks.py's RCM case: a block diagonal hidden by shuffles."""
     rng = np.random.default_rng(1)
@@ -86,6 +118,9 @@ MATRICES = {  # name -> (csc, m_pad, n_pad)
     "zero": (sp.csc_matrix((256, 256)), 256, 256),
     "identity": (sp.identity(256, format="csc"), 256, 256),
     "shuffled-blocks": (_shuffled_blocks(), 256, 256),
+    "empty-tile": (_empty_tile(), 256, 384),
+    "widest-tile": (_widest_tile(), 384, 640),
+    "last-column": (_last_column(), 128, 512),
 }
 
 
@@ -106,11 +141,17 @@ def test_flat_layout_equals_the_jax_packages(name, bucket):
     csc, mp, np_ = MATRICES[name]
     want = jax_bricks.bricks_from_csc(csc, mp, np_, bucket=bucket)
     got = bricks.bricks_from_csc(csc, mp, np_, bucket=bucket, device="cpu")
-    for leaf in ("rdata", "ridx", "cdata", "cidx"):
-        _eq(getattr(got, leaf), getattr(want, leaf))
+    dense = bricks.dense_bricks(got)
+    for leaf, arr in zip(("rdata", "ridx", "cdata", "cidx"), dense):
+        _eq(arr, getattr(want, leaf))
     assert got.shape == want.shape == (mp, np_) and got.dtype == torch.float64
     if bucket is not None:
-        assert got.rdata.shape[1] % 8 == 0 and got.cdata.shape[1] % 8 == 0
+        assert got.rslots % 8 == 0 and got.cslots % 8 == 0
+    # the numpy layout itself is the JAX package's
+    r, c, v = bricks._coo(csc, mp, np_)
+    for got_a, want_a in zip(bricks._slot_layout(r, c, v, mp, np_, got.rslots),
+                             jax_bricks._slot_layout(r, c, v, mp, np_, got.rslots)):
+        _eq(got_a, want_a)
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
@@ -118,18 +159,30 @@ def test_grouped_layout_equals_the_jax_packages(name):
     csc, mp, np_ = MATRICES[name]
     want = jax_bricks.grouped_bricks_from_csc(csc, mp, np_)
     got = bricks.grouped_bricks_from_csc(csc, mp, np_, device="cpu")
-    for side in ("r", "c"):
-        g_got, g_want = getattr(got, f"{side}groups"), getattr(want, f"{side}groups")
-        assert len(g_got) == len(g_want) >= 1
+    rgroups, rinv, cgroups, cinv = bricks.dense_bricks(got)
+    for side, g_got, inv_got in (("r", rgroups, rinv), ("c", cgroups, cinv)):
+        g_want = getattr(want, f"{side}groups")
+        assert len(g_got) == len(g_want) == len(getattr(got, f"{side}groups")) >= 1
         for (d, i), (dw, iw) in zip(g_got, g_want):
             _eq(d, dw)
             _eq(i, iw)
+        _eq(inv_got, getattr(want, f"{side}inv"))
         _eq(getattr(got, f"{side}inv"), getattr(want, f"{side}inv"))
         # the store order of the kernels is the inverse of the JAX un-sort
         inv = getattr(got, f"{side}inv").long()
-        assert torch.equal(getattr(got, f"{side}tile").long()[inv], torch.arange(len(inv)))
+        tiles = getattr(got, f"{side}tiles")
+        assert torch.equal(tiles.tile_of.long()[inv], torch.arange(len(inv)))
+    # the numpy layout itself is the JAX package's
+    r, c, v = bricks._coo(csc, mp, np_)
+    (groups, inv), (groups_w, inv_w) = (mod._grouped_layout(r, c, v, mp, np_, 4)
+                                        for mod in (bricks, jax_bricks))
+    _eq(inv, inv_w)
+    for (d, i), (dw, iw) in zip(groups, groups_w, strict=True):
+        _eq(d, dw)
+        _eq(i, iw)
     if name == "zero":   # one group of every tile, one empty slot each
-        assert [d.shape for d, _ in got.rgroups] == [(32, 1, 8, 128)]
+        assert [d.shape for d, _ in rgroups] == [(32, 1, 8, 128)]
+        assert got.rgroups == ((0, 32, 1),)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -203,38 +256,82 @@ def test_plain_products_match_the_pallas_kernels_in_f32(seed):
     A = sp.random(256, 512, density=0.02, random_state=np.random.default_rng(seed),
                   format="csc")
     B = bricks.bricks_from_csc(A, 256, 512, device="cpu").astype(torch.float32)
+    rdata, ridx, cdata, cidx = bricks.dense_bricks(B)
+    assert rdata.dtype == cdata.dtype == np.float32
     rng = np.random.default_rng(seed + 1)
     x, pi, c = (rng.standard_normal(k).astype(np.float32) for k in (512, 256, 512))
-    y_pl = np.asarray(brick_spmv_pallas(B.rdata.numpy(), B.ridx.numpy(), x, interpret=True))
-    d_pl = np.asarray(brick_pricing_pallas(B.cdata.numpy(), B.cidx.numpy(), pi, c,
-                                           interpret=True))
-    y_t = brick_kernels.brick_spmv_plain([(B.rdata, B.ridx)], torch.tensor(x))
-    d_t = brick_kernels.brick_price_plain([(B.cdata, B.cidx)], torch.tensor(pi),
-                                          torch.tensor(c))
+    # the Pallas kernels read the dense bricks the compact form expands to
+    y_pl = np.asarray(brick_spmv_pallas(rdata, ridx, x, interpret=True))
+    d_pl = np.asarray(brick_pricing_pallas(cdata, cidx, pi, c, interpret=True))
+    y_t = brick_kernels.brick_spmv_plain(B.rtiles, torch.tensor(x))
+    d_t = brick_kernels.brick_price_plain(B.ctiles, torch.tensor(pi), torch.tensor(c))
     assert y_t.dtype == d_t.dtype == torch.float32
     assert y_t.numpy() == pytest.approx(y_pl, rel=2e-5, abs=2e-5)
     assert d_t.numpy() == pytest.approx(d_pl, rel=2e-5, abs=2e-5)
     # the wrappers on CPU tensors are the plain versions and count nothing
     before = (brick_kernels.brick_spmv.launches, brick_kernels.brick_price.launches)
-    assert torch.equal(brick_kernels.brick_spmv([(B.rdata, B.ridx)], torch.tensor(x)), y_t)
+    assert torch.equal(brick_kernels.brick_spmv(B.rtiles, torch.tensor(x)), y_t)
     assert before == (brick_kernels.brick_spmv.launches, brick_kernels.brick_price.launches)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     B = bricks.bricks_from_csc(sp.identity(128, format="csc"), 128, 128, device="cpu")
     x = torch.ones(128, dtype=torch.float64)
+    t = B.rtiles
     with pytest.raises(TypeError):
-        brick_kernels.brick_spmv([(B.rdata, B.ridx)], x.float())
+        brick_kernels.brick_spmv(t, x.float())
     with pytest.raises(ValueError):
-        brick_kernels.brick_spmv([(B.rdata, B.ridx)], x[:100])
+        brick_kernels.brick_spmv(t, x[:100])
     with pytest.raises(ValueError):
-        brick_kernels.brick_price([(B.cdata, B.cidx)], x, x[:64])
-    with pytest.raises(ValueError):
-        brick_kernels.brick_spmv([], x)
+        brick_kernels.brick_price(B.ctiles, x, x[:64])
     with pytest.raises(ValueError, match="multiples of 128"):
         bricks.bricks_from_csc(sp.identity(100, format="csc"), 100, 128, device="cpu")
-    with pytest.raises(ValueError, match="block id"):
-        bricks.BrickMatrix(B.rdata, B.ridx + 1, B.cdata, B.cidx, 128, 128)
+    # what the kernels index without a bounds check is refused where the tiles are built
+    bad_ptr = t.ptr.clone()
+    bad_ptr[3], bad_ptr[4] = bad_ptr[4], bad_ptr[3] - 1
+    with pytest.raises(ValueError, match="offsets"):
+        brick_kernels.brick_tiles(bad_ptr, t.vals, t.pos, None, 128)
+    with pytest.raises(ValueError, match="column outside"):
+        brick_kernels.brick_tiles(t.ptr, t.vals, t.pos + 8 * 128, None, 128)
+    with pytest.raises(TypeError):
+        brick_kernels.brick_tiles(t.ptr, t.vals.to(torch.float16), t.pos, None, 128)
+    with pytest.raises(ValueError, match="permutation"):
+        brick_kernels.brick_tiles(t.ptr, t.vals, t.pos, torch.zeros(16, dtype=torch.int32), 128)
+    with pytest.raises(ValueError, match="inconsistent"):
+        bricks.BrickMatrix(B.rtiles, 1, B.ctiles, 1, 256, 128)
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("layout", ["flat", "bucket", "grouped"])
+def test_compact_form_holds_each_nonzero_once(name, layout):
+    """Per orientation the compact form holds every nonzero of A once, its
+    value bit for bit and its (row, column) in the position word, tiles in
+    the layout's order and each tile's nonzeros in the bricks' slot order;
+    slot padding adds no entry."""
+    csc, mp, np_ = MATRICES[name]
+    if layout == "grouped":
+        op = bricks.grouped_bricks_from_csc(csc, mp, np_, device="cpu")
+    else:
+        op = bricks.bricks_from_csc(csc, mp, np_, bucket=_bucket if layout == "bucket" else None,
+                                    device="cpu")
+    coo = csc.tocoo()
+    for tiles, rows, cols, width in ((op.rtiles, coo.row, coo.col, np_),
+                                     (op.ctiles, coo.col, coo.row, mp)):
+        assert tiles.vals.shape == tiles.pos.shape == (csc.nnz,) and tiles.width == width
+        ptr = tiles.ptr.numpy().astype(np.int64)
+        pos = tiles.pos.numpy().astype(np.int64)
+        assert ptr[0] == 0 and ptr[-1] == csc.nnz and (np.diff(ptr) >= 0).all()
+        s = np.repeat(np.arange(tiles.tiles), np.diff(ptr))
+        orig = s if tiles.tile_of is None else tiles.tile_of.numpy()[s]
+        got = sorted(zip(orig * 8 + (pos & 7), pos >> 3, tiles.vals.numpy()))
+        assert got == sorted(zip(rows.tolist(), cols.tolist(), coo.data.tolist()))
+        # slot order inside each tile: by block, then row-major in the brick
+        key = s * (width // 128) + (pos >> 3) // 128
+        key = (key * 8 + (pos & 7)) * 128 + (pos >> 3) % 128
+        assert (np.diff(key) > 0).all()
+        assert tiles.lanes == brick_kernels.tile_lanes(csc.nnz, tiles.tiles)
+    if name == "zero":
+        assert op.rtiles.ptr.abs().sum() == 0 and op.rtiles.lanes == 8
 
 
 @pytest.fixture(scope="module")

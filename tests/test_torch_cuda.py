@@ -34,6 +34,7 @@ from relp_tpu_torch.ops.brick_kernels import (
     brick_price_plain,
     brick_spmv,
     brick_spmv_plain,
+    brick_tiles,
 )
 from relp_tpu_torch.ops.bricks import bricks_from_csc, grouped_bricks_from_csc
 from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
@@ -543,32 +544,47 @@ def _ragged_matrix(m, n, seed):
     return sp.csc_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(m, n))
 
 
+def _empty_tile_matrix(m, n, seed):
+    """The ragged matrix with row tile 5 and column tile 10 emptied."""
+    A = _ragged_matrix(m, n, seed).tolil()
+    A[40:48, :] = 0
+    A[:, 80:88] = 0
+    A = A.tocsc()
+    A.eliminate_zeros()
+    return A
+
+
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("layout", ["flat", "grouped"])
-@pytest.mark.parametrize("matrix", ["ragged", "zero", "identity"])
+@pytest.mark.parametrize("matrix", ["ragged", "zero", "identity", "empty-tile", "heavy"])
 def test_brick_kernels_match_plain_versions_and_repeat_their_bits(cuda, dtype, tol, layout,
                                                                   matrix):
     m, n = 512, 768
     csc = {"ragged": lambda: _ragged_matrix(m, n, 5),
            "zero": lambda: sp.csc_matrix((m, n)),
-           "identity": lambda: sp.eye(m, n, format="csc")}[matrix]()
+           "identity": lambda: sp.eye(m, n, format="csc"),
+           "empty-tile": lambda: _empty_tile_matrix(m, n, 5),
+           "heavy": lambda: sp.random(m, n, density=0.1, random_state=12, format="csc")}[matrix]()
     build = bricks_from_csc if layout == "flat" else grouped_bricks_from_csc
     B = build(csc, m, n, device=cuda).astype(dtype)
-    if layout == "flat":
-        rg, rt, cg, ct = [(B.rdata, B.ridx)], None, [(B.cdata, B.cidx)], None
-    else:
-        rg, rt, cg, ct = B.rgroups, B.rtile, B.cgroups, B.ctile
-        if matrix == "ragged":   # several groups, of unequal slot counts
-            assert len(rg) > 1 and len({d.shape[1] for d, _ in rg}) > 1
+    rt, ct = B.rtiles, B.ctiles
+    assert rt.vals.device.type == "cuda" and rt.vals.numel() == csc.nnz
+    assert (rt.tile_of is None) == (ct.tile_of is None) == (layout == "flat")
+    counts = rt.ptr[1:] - rt.ptr[:-1]
+    if layout == "grouped" and matrix == "ragged":   # groups of unequal slot counts
+        assert len(B.rgroups) > 1 and len({g[2] for g in B.rgroups}) > 1
+    if matrix == "empty-tile":
+        assert int((counts == 0).sum()) >= 1 and int((ct.ptr[1:] == ct.ptr[:-1]).sum()) >= 1
+    if matrix == "heavy":   # a warp a tile, several batches of a lane's nonzeros
+        assert rt.lanes == ct.lanes == 32 and int(counts.max()) > 4 * 32
     rng = np.random.default_rng(11)
     x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
     y = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=cuda)
     c = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
     spmv0, price0 = brick_spmv.launches, brick_price.launches
-    for fn, plain in ((lambda: brick_spmv(rg, x, rt), lambda: brick_spmv_plain(rg, x, rt)),
-                      (lambda: brick_price(cg, y, c, ct), lambda: brick_price_plain(cg, y, c, ct)),
-                      (lambda: brick_price(cg, y, None, ct),
-                       lambda: brick_price_plain(cg, y, None, ct))):
+    for fn, plain in ((lambda: brick_spmv(rt, x), lambda: brick_spmv_plain(rt, x)),
+                      (lambda: brick_price(ct, y, c), lambda: brick_price_plain(ct, y, c)),
+                      (lambda: brick_price(ct, y), lambda: brick_price_plain(ct, y))):
         got = fn()
         again = fn()
         want = plain()
@@ -587,13 +603,22 @@ def test_brick_kernels_match_plain_versions_and_repeat_their_bits(cuda, dtype, t
 def test_brick_kernels_refuse_what_they_do_not_take(cuda):
     B = bricks_from_csc(sp.identity(128, format="csc"), 128, 128, device=cuda)
     x = torch.ones(128, dtype=torch.float64, device=cuda)
+    t = B.rtiles
     with pytest.raises(ValueError, match="several devices"):
-        brick_spmv([(B.rdata, B.ridx)], x.cpu())
+        brick_spmv(t, x.cpu())
     with pytest.raises(TypeError):
-        brick_price([(B.cdata, B.cidx)], x, x.float())
-    groups = [(B.rdata, B.ridx)] * 17      # more groups than a launch's table holds
-    with pytest.raises(ValueError, match="groups"):
-        brick_spmv(groups, x)
+        brick_price(B.ctiles, x, x.float())
+    with pytest.raises(TypeError):      # the wrong dtype
+        brick_spmv(t, x.float())
+    # what the kernels index without a bounds check, refused where the tiles are built
+    bad = t.ptr.clone()
+    bad[3] = 100                        # a non-monotone offset
+    with pytest.raises(ValueError, match="offsets"):
+        brick_tiles(bad, t.vals, t.pos, None, 128)
+    with pytest.raises(ValueError, match="column outside"):
+        brick_tiles(t.ptr, t.vals, t.pos + 8 * 128, None, 128)
+    with pytest.raises(TypeError):
+        brick_tiles(t.ptr, t.vals, t.pos.long(), None, 128)
 
 
 @pytest.mark.parametrize("crossover", [False, True])

@@ -19,7 +19,9 @@ device and by host time; ``--out`` receives the full profiler tables.
 ``--problem pdlp`` profiles the first-order engine's rounds instead: the
 max-flow LP is scaled and sent to the device as the driver's ``_run_pdlp``
 does it (on the operator ``--pdlp-matrix`` names: ``auto``, the ELL operator
-there, or ``bricks``, the grouped brick operator in RCM order), and
+there, or ``bricks``, the grouped brick operator in RCM order, its bricks
+compacted to their nonzeros; the header gives the operator's set-up seconds
+and peak device memory), and
 ``solve_pdhg_chunk`` runs ``--iters`` PDHG steps (whole rounds of 256) from
 the initial state, for each restart scheme in f32 and in f64.  Per iteration
 it prints launches, kernel time, wall, the device's busy share, and the
@@ -91,15 +93,21 @@ def profile_pdlp(args, smi) -> list[str]:
     config = SolverConfig(algorithm="pdlp", pdlp_matrix=args.pdlp_matrix)
     dev = torch.device("cuda")
     p = driver._Padded.of(cf, config, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     A64, vecs, _, _, _, fmt = driver._pdlp_operator(p, *driver._pdlp_scaling(p))
+    torch.cuda.synchronize()
+    setup_s, setup_mib = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**20
     vec64 = [torch.as_tensor(v, device=dev) for v in vecs]
     eta0 = 0.9 / float(_power_norm(A64))
     rounds = max(1, args.iters // config.pdlp_round)
     its = rounds * config.pdlp_round
     m_op, n_op = A64.shape
     lines = [f"[profile] PDHG rounds, max-flow N={args.nodes}: m={cf.m} n={cf.n} (operator "
-             f"{m_op}x{n_op}) format {fmt} "
-             f"{rounds} rounds of {config.pdlp_round} steps [{smi}]"]
+             f"{m_op}x{n_op}) format {fmt}, scaled and built in {setup_s:.3f} s, peak "
+             f"{setup_mib:.1f} MiB on the card; {rounds} rounds of {config.pdlp_round} steps "
+             f"[{smi}]"]
     for dtype in (torch.float32, torch.float64):
         A = A64.astype(dtype)
         b, c, lb, ub = (v.to(dtype) for v in vec64)

@@ -25,7 +25,9 @@ every group size to the same bits, and prints ``lane_plan``'s own choice
 beside ``addmm``.  ``--only bricks`` times ``ell_spmv`` and ``ell_price``
 on the first-order operator of the max flows (N = 1,024 and 4,096) in their
 natural order and in RCM order, beside ``brick_spmv`` and ``brick_price`` on
-the same matrices, and the two ELL kernels at the bandwidth shape in both
+the same matrices, the brick kernels' lanes a tile × the nonzeros a lane
+loads before its first gather (``RELP_BRICK_BATCH``) on the grouped RCM
+operator, and the two ELL kernels at the bandwidth shape in both
 orders (``sweep_bricks``).  With ``--package-root DIR`` the package is taken from another
 checkout (an earlier commit unpacked beside this one), and where that one's
 ``ell_spmv`` has no plan to sweep its one launch shape is timed alone, so the
@@ -205,8 +207,9 @@ def sweep_bricks(say, us, rng, dev, nodes=(1024, 4096), bandwidth=(31, 131072, 1
 
     import chip_smoke
     from relp_tpu_torch.ops.amatrix import ell_from_csc
+    from relp_tpu_torch.ops import cuda_build
     from relp_tpu_torch.ops.brick_kernels import (
-        brick_price, brick_price_plain, brick_spmv, brick_spmv_plain,
+        LANES, brick_price, brick_price_plain, brick_spmv, brick_spmv_plain,
     )
     from relp_tpu_torch.ops.bricks import (
         bandwidth_perm, bricks_from_csc, grouped_bricks_from_csc,
@@ -255,19 +258,38 @@ def sweep_bricks(say, us, rng, dev, nodes=(1024, 4096), bandwidth=(31, 131072, 1
                 for label, op in (("grouped", grp), ("flat", flat)):
                     if op is None:
                         continue
-                    if label == "grouped":
-                        rg, rt, cg, ct = op.rgroups, op.rtile, op.cgroups, op.ctile
-                    else:
-                        rg, rt, cg, ct = ((op.rdata, op.ridx),), None, ((op.cdata, op.cidx),), None
-                    rg = [(d.to(dtype), i) for d, i in rg]
-                    cg = [(d.to(dtype), i) for d, i in cg]
+                    rt, ct = op.astype(dtype).rtiles, op.astype(dtype).ctiles
                     cells.append(
-                        f"brick_spmv {label} {held('brick_spmv', lambda: brick_spmv(rg, x, rt), lambda: brick_spmv_plain(rg, x, rt), tol):.2f} us "
-                        f"({mb(*(t for g in rg for t in g)):.1f} MB)")
+                        f"brick_spmv {label} {held('brick_spmv', lambda: brick_spmv(rt, x), lambda: brick_spmv_plain(rt, x), tol):.2f} us "
+                        f"({mb(rt.ptr, rt.vals, rt.pos, rt.tile_of):.3f} MB, {rt.lanes} lanes a tile)")
                     cells.append(
-                        f"brick_price {label} {held('brick_price', lambda: brick_price(cg, y, c, ct), lambda: brick_price_plain(cg, y, c, ct), tol):.2f} us "
-                        f"({mb(*(t for g in cg for t in g)):.1f} MB)")
+                        f"brick_price {label} {held('brick_price', lambda: brick_price(ct, y, c), lambda: brick_price_plain(ct, y, c), tol):.2f} us "
+                        f"({mb(ct.ptr, ct.vals, ct.pos, ct.tile_of):.3f} MB, {ct.lanes} lanes a tile)")
                 say(f"[sweep] bricks {tag} {order} order: " + "; ".join(cells))
+        # the brick kernels' launch shape on the grouped RCM operator: the lanes
+        # of a tile (tile_lanes' choice marked) x the nonzeros a lane loads
+        # before its first gather (RELP_BRICK_BATCH)
+        base_flags = list(cuda_build.COMPILE_FLAGS)
+        for batch in (2, 4, 8):
+            cuda_build.COMPILE_FLAGS[:] = base_flags + [f"-DRELP_BRICK_BATCH={batch}"]
+            cuda_build.load_kernels.cache_clear()
+            cuda_build.load_kernels()
+            for dtype, tol in ((torch.float64, chip_smoke.F64_TOL),
+                               (torch.float32, chip_smoke.F32_TOL)):
+                x, y, c = x64.to(dtype), y64.to(dtype), c64.to(dtype)
+                op = grouped.astype(dtype)
+                cells = []
+                for lanes in LANES:
+                    rt, ct = op.rtiles._replace(lanes=lanes), op.ctiles._replace(lanes=lanes)
+                    cells.append(
+                        f"{lanes} lanes: brick_spmv{'*' if lanes == op.rtiles.lanes else ''} "
+                        f"{held('brick_spmv', lambda: brick_spmv(rt, x), lambda: brick_spmv_plain(rt, x), tol):.2f} "
+                        f"brick_price{'*' if lanes == op.ctiles.lanes else ''} "
+                        f"{held('brick_price', lambda: brick_price(ct, y, c), lambda: brick_price_plain(ct, y, c), tol):.2f}")
+                say(f"[sweep] bricks N={n_nodes} {'f32' if dtype == torch.float32 else 'f64'} "
+                    f"grouped RCM, batch {batch} us (* tile_lanes' choice): " + "; ".join(cells))
+        cuda_build.COMPILE_FLAGS[:] = base_flags
+        cuda_build.load_kernels.cache_clear()
         del ops, grouped
         torch.cuda.empty_cache()
 
