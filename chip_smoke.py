@@ -150,13 +150,40 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              once per PDHG step.  Wall, LPs/s, iterations, host reads per
              step, launches per iteration and peak memory of each.  Then
              ``examples/torch_scenario_fleet.py`` (16 scenarios, the IPM fleet).
-15. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file, and
+15. mesh   — the multi-device paths (``relp_tpu_torch/parallel/``) on two
+             shards of the one card (``devices=["cuda:0"] * 2``): first the
+             sharded operator's ``price_select`` and ``price32_select`` on the
+             slice's ELL pool (two blocks of 16,384 columns) and the dense LP
+             at 256 × 512 (two of 256), at the mid-solve state of the kernels
+             phase, over the whole pool and a window across the shard
+             boundary, against the plain selection of the whole pool (q and
+             has equal, d_q within the kernels' tolerance) and the single
+             operator's bits; then the slice's max flow through
+             ``api.solve(path, SolverConfig(mesh_cols=2))`` on ELL (scipy's objective, the slice's iterations and host reads,
+             ``ell_price_select`` launched twice as often as by the slice's
+             single solve: once per shard), the dense LP at 256 × 512 with
+             ``mesh_cols=2`` (HiGHS's objective within 1e-9 relative, the
+             options phase's iterations and host reads,
+             ``dense_price_select`` at least twice per iteration), the N = 4,096
+             max flow under ``algorithm="pdlp"``, ``pdlp_matrix="bricks"`` and
+             ``mesh_cols=2`` (no brick kernel launched: a mesh that shards takes
+             ELL; the pdlp phase's iterations and objective), ``solve_batched``
+             and ``solve_pdhg_batched`` with a mesh of two 'batch' rows against
+             their unmeshed runs lane by lane (and each row's 2-lane
+             ``dense_price_select_lanes`` launch at 64 × 128, at step 16 of the
+             meshed solve, against the plain selection of its lanes), and a
+             one-rank NCCL process group (``multihost._join``, the path of
+             ``initialize_distributed`` for more than one process) that gathers
+             a 2-scenario fleet's objectives and is destroyed.  The walls stand
+             beside the single solve's: two shards on one card measure the
+             sharding's overhead, not a speed-up.
+16. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file, and
              with ``--algorithm pdlp --pdlp-matrix bricks`` (both brick kernels
              launched).
 
 Launch counts: every kernel's count is set to 0 just before each path that
-runs it (probe, slice, dense, pdlp, bricks, the primal and first-order fleets) and
-read just after; launches made to
+runs it (probe, slice, dense, pdlp, bricks, the primal and first-order fleets,
+the mesh phase's paths) and read just after; launches made to
 compare a kernel with its plain version do not count.  (``dual`` is the
 N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
 ``launches`` is the count of the path whose shape and mode the kernel's
@@ -205,6 +232,7 @@ F32_TOL = 2e-5          # f32 sums run in another order (and fused) than the pla
 F64_TOL = 1e-12
 OBJ_REL = 1e-9
 MID_SOLVE_ITERS = 600   # where the select comparisons take their state
+MESH_LANE_STEP = 16     # where the [mesh] phase's lane comparison takes its state
 ANALYSIS_SAMPLE = 8     # cost and rhs intervals of the dense LP held against re-solves
 CUT_WIDTH = 100.0       # examples/column_range.py's cutting stock
 CUT_SIZES = (45.0, 36.0, 31.0, 14.0)
@@ -284,6 +312,7 @@ def _wrappers():
 
 
 PATHS = {}  # path -> {kernel: launches}: what every driven path counted
+SOLVES = {}  # phase -> what a later phase compares with (the single solves' metrics)
 
 
 @contextlib.contextmanager
@@ -385,6 +414,31 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def _agree(phase, label, got, want, tol, scale=1.0):
+    """Raise unless a kernel's result ``got`` agrees with its plain version's
+    ``want``: a selection ``(q, has, d_q)`` exactly in ``q`` and ``has``, the
+    values within ``tol·(1 + |want|)``, ``tol`` widened by ``scale`` (see
+    :func:`_compare`).  Returns ``(the choice as text, max abs err, tol)``."""
+    import torch
+
+    choice = ""
+    if isinstance(got, tuple):
+        (q, has, got), (q0, has0, want) = got, want
+        if not (torch.equal(q, q0) and torch.equal(has, has0)):
+            raise AssertionError(f"[{phase}] {label}: chose (q, has) = ({q.tolist()}, "
+                                 f"{has.tolist()}), the plain version ({q0.tolist()}, "
+                                 f"{has0.tolist()})")
+        choice = (f"q {int(q)} has {bool(has)} == plain; d_q " if q.dim() == 0 else
+                  f"(q, has) of all {q.numel()} lanes == plain; d_q ")
+    err = (got - want).abs()
+    tol = tol * max(1.0, scale)
+    bound = tol + tol * want.abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
+        raise AssertionError(f"[{phase}] {label}: max abs err {float(err.max()):.3e} "
+                             f"exceeds {tol:g} (rel/abs)")
+    return choice, float(err.max()), tol
+
+
 def _compare(label, kernel_fn, plain_fn, tol, smi, *, nbytes, flops, tag,
              library_fn=None, library=None, same_bits=False, scale=1.0, plain_runs=TIMED_RUNS):
     """Launch, synchronise, compare with the plain version, then time both
@@ -406,23 +460,9 @@ def _compare(label, kernel_fn, plain_fn, tol, smi, *, nbytes, flops, tag,
         pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
         if not all(torch.equal(a, b) for a, b in pairs):
             raise AssertionError(f"[kernels] {label}: two runs gave different bits")
-    choice = ""
-    if isinstance(got, tuple):
-        (q, has, got), (q0, has0, want) = got, want
-        if not (torch.equal(q, q0) and torch.equal(has, has0)):
-            raise AssertionError(f"[kernels] {label}: chose (q, has) = ({q.tolist()}, "
-                                 f"{has.tolist()}), the plain version ({q0.tolist()}, "
-                                 f"{has0.tolist()})")
-        choice = (f"q {int(q)} has {bool(has)} == plain; d_q " if q.dim() == 0 else
-                  f"(q, has) of all {q.numel()} lanes == plain; d_q ")
-    err = (got - want).abs()
-    tol = tol * max(1.0, scale)
-    bound = tol + tol * want.abs()
-    if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
-        raise AssertionError(f"[kernels] {label}: max abs err {float(err.max()):.3e} "
-                             f"exceeds {tol:g} (rel/abs)")
+    choice, max_err, tol = _agree("kernels", label, got, want, tol, scale)
     by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[tag] * 1e3
-    row = {"max_abs_err": float(err.max()), "ms": _device_ms(kernel_fn),
+    row = {"max_abs_err": max_err, "ms": _device_ms(kernel_fn),
            "plain_ms": _device_ms(plain_fn, plain_runs, batches=3),
            "bound_ms": max(by_bytes, by_ops),
            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -753,17 +793,15 @@ def _padded_dense(general):
     return A
 
 
-def _mid_lane_state(dev, iters):
-    """``(selection, V, C, live)`` as the lane-batched primal's f32 scan meets
-    them at step ``iters`` of a cold solve of the primal fleet's LPs."""
-    import torch
-
+def _lane_states(iters, arrays, **kw):
+    """``(selection, V, C, live)`` of every lane group as the lane-batched
+    primal's f32 scan meets them at step ``iters`` of a cold solve of the LPs
+    ``arrays`` (``kw``: ``solve_batched``'s ``device`` or ``mesh``)."""
     from relp_tpu_torch.ops.select_epilogue import Selection
     from relp_tpu_torch.parallel import solve_batched
     from relp_tpu_torch.simplex.core import LanePrimalKernel
     from relp_tpu_torch.utils.config import SolverConfig
 
-    A, b, c, lb, ub = _fleet_arrays(*FLEET_PRIMAL_SHAPE, FLEET_LANES, demand=False)
     seen = []
     price = LanePrimalKernel._price
 
@@ -777,12 +815,23 @@ def _mid_lane_state(dev, iters):
 
     LanePrimalKernel._price = watched
     try:
-        solve_batched(A, b, c, lb, ub, SolverConfig(), iters, device=dev)
+        solve_batched(*arrays, SolverConfig(), iters, **kw)
     finally:
         LanePrimalKernel._price = price
+    return seen
+
+
+def _mid_lane_state(dev, iters):
+    """``(selection, V, C, live)`` as the lane-batched primal's f32 scan meets
+    them at step ``iters`` of a cold solve of the primal fleet's LPs, and
+    their shared A in f32."""
+    import torch
+
+    arrays = _fleet_arrays(*FLEET_PRIMAL_SHAPE, FLEET_LANES, demand=False)
+    seen = _lane_states(iters, arrays, device=dev)
     if len(seen) != 1:
         raise AssertionError(f"[kernels] the lane solve priced {len(seen)} times at step {iters}")
-    return seen[0], torch.as_tensor(A, dtype=torch.float32, device=dev)
+    return seen[0], torch.as_tensor(arrays[0], dtype=torch.float32, device=dev)
 
 
 def _lanes_equal_single(got, A, V, C, stacked, live=None):
@@ -1061,9 +1110,10 @@ def phase_kernels(smi):
     return timings
 
 
-def _solve_file(general, name, config=None):
-    """Write ``general`` to MPS and solve it through ``api.solve(path)``;
-    returns the result and the api wall (synchronised)."""
+def _solve_file(general, name, config=None, devices=None):
+    """Write ``general`` to MPS and solve it through ``api.solve(path)``
+    (``devices``: what ``mesh_cols`` shards over); returns the result and the
+    api wall (synchronised)."""
     import torch
 
     from relp_tpu_torch import api
@@ -1075,7 +1125,7 @@ def _solve_file(general, name, config=None):
         export_mps(general, path)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = api.solve(path, DEFAULT_CONFIG if config is None else config)
+        res = api.solve(path, DEFAULT_CONFIG if config is None else config, devices=devices)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
@@ -1112,6 +1162,7 @@ def phase_slice(smi, launches):
         res, wall = _solve_file(general, f"maxflow_{N_NODES}")
     obj = _check_optimal("slice", res, "ell")
     met = res.simplex.metrics
+    SOLVES["slice"] = (met, wall)
     if abs(obj - flow) > 1e-6:
         raise AssertionError(f"[slice] objective {obj!r} != max-flow value {flow!r}")
     if min(launches["ell_price"], launches["ell_spmv"]) < 1 or \
@@ -1173,6 +1224,7 @@ def phase_options(smi):
     m, n = OPTIONS_SHAPE
     base, wall = _solve_file(dense_lp(m, n), f"dense_{m}x{n}")
     ref = _check_optimal("options", base, "dense")
+    SOLVES["options"] = (base.simplex.metrics, wall)
     print(f"[options] dense {m}x{n} default: objective {ref:.15g} iterations "
           f"{base.simplex.iterations} api_wall {wall:.3f} s [{smi}]")
     for opts in (dict(inverse="eta"), dict(price_blocks=4), dict(perturb=1e-6),
@@ -1241,6 +1293,7 @@ def phase_pdlp(smi, launches):
     obj = _check_optimal("pdlp", res, "ell")
     met = _report_pdlp(f"max-flow N={N_NODES} without crossover", res, wall, smi,
                        PATHS["pdlp"])
+    SOLVES["pdlp"] = (met, obj)
     if met.engine != "pdlp":
         raise AssertionError(f"[pdlp] engine {met.engine!r}, expected 'pdlp'")
     if abs(obj - flow) > 1e-5 * abs(flow):
@@ -2203,6 +2256,239 @@ def phase_fleet(smi, launches, fleet_refs):
     torch.cuda.empty_cache()
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_select(dev, two):
+    """The sharded operator's selections, at the shapes its shards launch
+    them with, against the plain selection over the whole pool at the
+    mid-solve state of ``_kernels_select``: the slice's ELL pool and the
+    dense LP at 256 × 512 (the phase's), f32 over the whole pool and over a
+    window across the shard boundary, f64 over the whole pool.  Each must
+    also give the single operator's bits."""
+    import torch
+
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.ops.dense_kernels import dense_price_select_plain
+    from relp_tpu_torch.ops.sparse_kernels import ell_price_plain, ell_price_select_plain
+    from relp_tpu_torch.parallel.sharded import shard_operator
+
+    for name, general in (("ell", lambda: slice_problem()[0]),
+                          ("dense", lambda: dense_lp(*OPTIONS_SHAPE))):
+        op = _operator(general(), dev, name).with_f32()
+        sel, pi, c_eff = _mid_solve_state(general(), dev, MID_SOLVE_ITERS)
+        sh = shard_operator(op, two)
+        m_pad, n_pad = op.shape
+        for tag, tol, j0, w in (("f32", F32_TOL, 0, n_pad),
+                                ("f32", F32_TOL, n_pad // 4, n_pad // 2),
+                                ("f64", F64_TOL, 0, n_pad)):
+            v = pi.float() if tag == "f32" else pi
+            c = (c_eff.float() if tag == "f32" else c_eff)[j0:j0 + w].contiguous()
+            if name == "ell":
+                pool = (op.data32_t if tag == "f32" else op.data_t), op.rows_t
+                plain = ell_price_select_plain
+                scale = float(ell_price_plain(pool[0].abs(), pool[1], v.abs(), None, j0, w).max())
+            else:
+                pool = (op.A32 if tag == "f32" else op.A,)
+                plain = dense_price_select_plain
+                scale = float((v.abs() @ pool[0][:, j0:j0 + w].abs()).max())
+            got, single = ((o.price32_select(c, v, sel, j0, w) if tag == "f32" else
+                            o.price_select(c, v, sel)) for o in (sh, op))
+            torch.cuda.synchronize()
+            label = (f"{name}_price_select {tag} [{j0}, {j0 + w}) of {m_pad}x{n_pad} over shards "
+                     f"{sh.bounds}, mid-solve state")
+            choice, err, tol = _agree("mesh", label, got, plain(*pool, v, c, *sel, j0, w),
+                                      tol, scale)
+            if not all(torch.equal(a, b) for a, b in zip(got, single)):
+                raise AssertionError(f"[mesh] {label}: {tuple(t.tolist() for t in got)}, the "
+                                     f"single operator {tuple(t.tolist() for t in single)}")
+            print(f"[mesh] {label}: {choice}max_abs_err {err:.3e} (bound {tol:g}·(1 + |plain|)); "
+                  "the single operator's (q, has, d_q) bit for bit")
+
+
+def _mesh_lanes(dev, mesh, arrays, iters):
+    """``dense_price_select_lanes`` as each 'batch' row of ``mesh`` launches
+    it (its lanes of the shared A), at step ``iters`` of the meshed solve of
+    ``arrays``, against the plain selection of every lane, f32 and f64."""
+    import torch
+
+    from relp_tpu_torch.ops.dense_kernels import (
+        dense_price_select_lanes, dense_price_select_lanes_plain,
+    )
+
+    states = _lane_states(iters, arrays, mesh=mesh)
+    if len(states) != mesh.shape["batch"]:
+        raise AssertionError(f"[mesh] {len(states)} lane groups priced at step {iters}")
+    A32 = torch.as_tensor(arrays[0], dtype=torch.float32, device=dev)
+    m, n = A32.shape
+    for row, (sel, V32, C32, live) in enumerate(states):
+        for tag, tol, A, v, c in (("f32", F32_TOL, A32, V32, C32),
+                                  ("f64", F64_TOL, A32.double(), V32.double(), C32.double())):
+            got = dense_price_select_lanes(A, v, c, *sel)
+            torch.cuda.synchronize()
+            label = (f"dense_price_select_lanes {tag} 'batch' row {row}: {v.shape[0]} lanes of "
+                     f"{m}x{n} at step {iters} ({int(live.sum())} live)")
+            choice, err, tol = _agree("mesh", label, got,
+                                      dense_price_select_lanes_plain(A, v, c, *sel), tol,
+                                      float((v.abs() @ A.abs()).max()))
+            print(f"[mesh] {label}: {choice}max_abs_err {err:.3e} (bound {tol:g}·(1 + |plain|))")
+
+
+def phase_mesh(smi, highs_small):
+    """The multi-device paths on two shards of the one card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from relp_tpu_torch.fom import solve_pdhg_batched
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.parallel import global_solver_mesh, make_solver_mesh, solve_batched
+    from relp_tpu_torch.parallel.multihost import _join, process_allgather
+    from relp_tpu_torch.simplex import status as st
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    two = ["cuda:0", "cuda:0"]
+    ell_names = ("ell_price", "ell_price_select", "ell_spmv")
+
+    # 0. the shards' selection launches against the plain versions
+    _mesh_select(torch.device("cuda"), [torch.device(d) for d in two])
+
+    # 1. the slice's max flow over two column shards
+    general, flow = slice_problem()
+    torch.cuda.reset_peak_memory_stats()
+    with counted(ell_names, {}, "mesh maxflow"):
+        res, wall = _solve_file(general, f"maxflow_{N_NODES}", SolverConfig(mesh_cols=2),
+                                devices=two)
+    obj = _check_optimal("mesh", res, "ell")
+    met, (one, one_wall) = res.simplex.metrics, SOLVES["slice"]
+    got, single = PATHS["mesh maxflow"], PATHS["slice"]
+    if abs(obj - flow) > 1e-6:
+        raise AssertionError(f"[mesh] objective {obj!r} != max-flow value {flow!r}")
+    if met.iterations != one.iterations or met.host_reads != one.host_reads:
+        raise AssertionError(f"[mesh] {met.iterations} iterations, {met.host_reads} host reads;"
+                             f" the single solve {one.iterations}, {one.host_reads}")
+    if got["ell_price_select"] != 2 * single["ell_price_select"] or \
+            got["ell_spmv"] != single["ell_spmv"]:
+        raise AssertionError(f"[mesh] launches {got}, the single solve's {single}")
+    its = max(met.iterations, 1)
+    print(f"[mesh] max-flow N={N_NODES} over 2 shards of cuda:0: objective {obj:.12g} == scipy "
+          f"{flow:.12g}; iterations {met.iterations} (single {one.iterations}) host_reads "
+          f"{met.host_reads} ({met.host_reads / its:.3f}/iter, single {one.host_reads}) "
+          f"ell_price_select {got['ell_price_select']} ({got['ell_price_select'] / its:.3f}/iter,"
+          f" {got['ell_price_select'] / 2 / its:.3f} per shard; single "
+          f"{single['ell_price_select']}) ell_price {got['ell_price']} ell_spmv "
+          f"{got['ell_spmv']}")
+    print(f"[mesh] max-flow solve_wall {met.wall_s:.3f} s api_wall {wall:.3f} s beside the "
+          f"single solve's {one.wall_s:.3f} / {one_wall:.3f} s (the overhead of two shards on "
+          f"one card, no speed-up) peak_mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB "
+          f"[{smi}]")
+
+    # 2. the dense LP over two column shards
+    m, n = OPTIONS_SHAPE
+    highs = highs_small.result()
+    with counted(("dense_price", "dense_price_select"), {}, "mesh dense"):
+        res, wall = _solve_file(dense_lp(m, n), f"dense_{m}x{n}", SolverConfig(mesh_cols=2),
+                                devices=two)
+    obj = _check_optimal("mesh", res, "dense")
+    met, got, (one, one_wall) = res.simplex.metrics, PATHS["mesh dense"], SOLVES["options"]
+    if abs(obj - highs) > OBJ_REL * abs(highs):
+        raise AssertionError(f"[mesh] dense objective {obj!r} != HiGHS {highs!r}")
+    if met.iterations != one.iterations or met.host_reads != one.host_reads:
+        raise AssertionError(f"[mesh] dense {met.iterations} iterations, {met.host_reads} host "
+                             f"reads; the single solve {one.iterations}, {one.host_reads}")
+    if got["dense_price_select"] < 2 * met.iterations:
+        raise AssertionError(f"[mesh] dense launches {got} for {met.iterations} iterations")
+    its = max(met.iterations, 1)
+    print(f"[mesh] dense LP {m}x{n} over 2 shards: objective {obj:.15g} HiGHS {highs:.15g} rel "
+          f"{abs(obj - highs) / abs(highs):.2e} iterations {met.iterations} (single "
+          f"{one.iterations}) host_reads {met.host_reads} (single {one.host_reads}) "
+          f"dense_price_select {got['dense_price_select']} "
+          f"({got['dense_price_select'] / its:.3f}/iter) dense_price {got['dense_price']} "
+          f"solve_wall {met.wall_s:.3f} s api_wall {wall:.3f} s (single {one.wall_s:.3f} / "
+          f"{one_wall:.3f} s) [{smi}]")
+
+    # 3. PDLP on bricks under a mesh that shards: ELL, sharded
+    general, flow = slice_problem()
+    bricks = {name: _wrappers()[name] for name in ("brick_spmv", "brick_price")}
+    for wrapper in bricks.values():  # counted apart: this path must launch neither
+        wrapper.launches = 0
+    with counted(("ell_price", "ell_spmv"), {}, "mesh pdlp"):
+        res, wall = _solve_file(general, f"maxflow_{N_NODES}", SolverConfig(
+            algorithm="pdlp", pdlp_crossover=False, pdlp_matrix="bricks", mesh_cols=2),
+            devices=two)
+    obj = _check_optimal("mesh", res, "ell")
+    met = res.simplex.metrics
+    got = dict(PATHS["mesh pdlp"], **{name: w.launches for name, w in bricks.items()})
+    one, one_obj = SOLVES["pdlp"]
+    if met.fo_matrix != "ell" or got["brick_spmv"] or got["brick_price"]:
+        raise AssertionError(f"[mesh] pdlp operator {met.fo_matrix!r}, launches {got}")
+    if met.fo_iterations != one.fo_iterations or abs(obj - one_obj) > OBJ_REL * abs(one_obj):
+        raise AssertionError(f"[mesh] pdlp {met.fo_iterations} iterations objective {obj!r}; "
+                             f"unmeshed {one.fo_iterations}, {one_obj!r}")
+    print(f"[mesh] pdlp max-flow N={N_NODES} pdlp_matrix=bricks mesh_cols=2: operator "
+          f"{met.fo_matrix}, launches {got}, iterations {met.fo_iterations} (unmeshed "
+          f"{one.fo_iterations}) objective {obj:.12g} (unmeshed {one_obj:.12g}, scipy "
+          f"{flow:.12g}) solve_wall {met.wall_s:.3f} s (unmeshed {one.wall_s:.3f} s) [{smi}]")
+
+    # 4. scenarios over 'batch': two rows on the one card against the unmeshed runs
+    mesh = make_solver_mesh(batch=2, cols=1, devices=two)
+    arrays = _fleet_arrays(64, 128, 4, demand=False)
+    cfg = SolverConfig()
+    with counted(("dense_price_select_lanes",), {}, "mesh batched"):
+        meshed = solve_batched(*arrays, cfg=cfg, max_iter=5000, mesh=mesh)
+    flat = solve_batched(*arrays, cfg=cfg, max_iter=5000, device="cuda")
+    if meshed.status.tolist() != flat.status.tolist() \
+            or not torch.allclose(meshed.obj, flat.obj, rtol=OBJ_REL, atol=0) \
+            or set(flat.status.tolist()) != {st.OPTIMAL}:
+        raise AssertionError(f"[mesh] solve_batched meshed {meshed.status.tolist()} "
+                             f"{meshed.it.tolist()} {meshed.obj.tolist()}; unmeshed "
+                             f"{flat.status.tolist()} {flat.it.tolist()} {flat.obj.tolist()}")
+    fo = dict(round_len=64, max_rounds=8, tol=1e-8)
+    meshed_fo = solve_pdhg_batched(*arrays, mesh=mesh, **fo)
+    flat_fo = solve_pdhg_batched(*arrays, device="cuda", **fo)
+    if meshed_fo.status.tolist() != flat_fo.status.tolist() or \
+            not torch.allclose(meshed_fo.x, flat_fo.x, rtol=0, atol=1e-9):
+        raise AssertionError(f"[mesh] solve_pdhg_batched meshed {meshed_fo.it.tolist()}, "
+                             f"unmeshed {flat_fo.it.tolist()}")
+    # the lane kernels keep each lane's bits whatever the group; the shared
+    # A's products (X·Aᵀ, the batched FTRAN) are cuBLAS calls over 2 or 4
+    # lanes, whose rounding the library may choose by the lane count
+    _mesh_lanes(torch.device("cuda"), mesh, arrays, MESH_LANE_STEP)
+    print(f"[mesh] solve_batched 4 lanes of the dense LP 64x128 over 2 'batch' rows: "
+          f"iterations {meshed.it.tolist()} (unmeshed {flat.it.tolist()}), objectives within "
+          f"{OBJ_REL:g}, max |dobj| {float((meshed.obj - flat.obj).abs().max()):.2e} (launches "
+          f"{PATHS['mesh batched']}); solve_pdhg_batched 8 rounds of 64: steps "
+          f"{meshed_fo.it.tolist()} (unmeshed {flat_fo.it.tolist()}), max |dx| "
+          f"{float((meshed_fo.x - flat_fo.x).abs().max()):.2e}")
+
+    # 5. a one-rank NCCL group gathers a 2-scenario fleet's objectives
+    _join(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    try:
+        backend = dist.get_backend()
+        gmesh = global_solver_mesh(device="cuda")
+        A = np.zeros((2, 8, 128))
+        A[:, 0, :3] = 1.0
+        b = np.zeros((2, 8))
+        b[:, 0] = (3.0, 6.0)
+        c = np.zeros((2, 128))
+        c[:, :2] = (-1.0, -2.0)
+        ub = np.zeros((2, 128))
+        ub[:, :2], ub[:, 2] = 4.0, np.inf
+        out = solve_batched(A, b, c, np.zeros((2, 128)), ub, cfg=cfg, max_iter=64, mesh=gmesh)
+        objs = process_allgather(out.obj).tolist()
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl" or not np.allclose(objs, [-6.0, -10.0], rtol=0, atol=1e-9):
+        raise AssertionError(f"[mesh] {backend} group gathered {objs}, expected [-6.0, -10.0]")
+    print(f"[mesh] one-rank {backend} group over mesh {gmesh.shape}: gathered objectives "
+          f"{objs} == closed form (-6, -10); destroyed")
+
+
 def phase_cli():
     from relp_tpu_torch import cli
 
@@ -2259,7 +2545,8 @@ def main() -> int:
                   lambda: phase_dual(smi, launches, highs, milp_ref),
                   lambda: phase_analysis(smi), lambda: phase_colgen(smi, colgen_ref),
                   lambda: phase_ipm(smi, highs, highs_small),
-                  lambda: phase_fleet(smi, launches, fleet_refs), phase_cli):
+                  lambda: phase_fleet(smi, launches, fleet_refs),
+                  lambda: phase_mesh(smi, highs_small), phase_cli):
         t0 = time.perf_counter()
         phase()
         print(f"[time] {time.perf_counter() - t0:.1f} s", flush=True)

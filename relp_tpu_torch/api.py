@@ -17,10 +17,12 @@ from relp_tpu_torch.utils.device import DeviceLike
 
 
 def solve(path: Union[str, os.PathLike], config: SolverConfig = DEFAULT_CONFIG,
-          device: DeviceLike = None) -> GeneralFormResult:
+          device: DeviceLike = None, devices=None) -> GeneralFormResult:
     """Solve the LP in an ``.mps``/``.sif`` file.  ``device=None`` reads
-    ``RELP_TPU_TORCH_DEVICE`` (default ``"cuda"``)."""
-    return solve_general_form(import_lp(path), config, device=device)
+    ``RELP_TPU_TORCH_DEVICE`` (default ``"cuda"``); ``devices`` is what
+    ``config.mesh_cols`` shards over (default: every visible device of that
+    kind)."""
+    return solve_general_form(import_lp(path), config, device=device, devices=devices)
 
 
 def ranging_of(result: GeneralFormResult):

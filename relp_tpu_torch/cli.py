@@ -8,9 +8,9 @@ starts, ``--write-mps`` export, ``--perturb``, ``--inverse``), its dual ones
 (``--algorithm pdlp``, ``--no-crossover``, ``--pdlp-*``), the interior point
 (``--algorithm ipm``, ``--ipm-*``), sensitivity ranging (``--ranging``) and the
 exact check and optimality certificate (``--verify``, exit code 3 when either
-fails).  The device comes from ``RELP_TPU_TORCH_DEVICE`` (default ``cuda``).
-The JAX package's one flag whose part is not ported yet (``--mesh-cols``)
-exits with a message saying so.
+fails), and the column-sharded solve (``--mesh-cols N`` over N of the visible
+devices, -1 = all).  The device comes from ``RELP_TPU_TORCH_DEVICE`` (default
+``cuda``).
 """
 
 from __future__ import annotations
@@ -23,9 +23,6 @@ import time
 from relp_tpu_torch.io.errors import ImportError_
 from relp_tpu_torch.model.elements import LinearProgramType
 from relp_tpu_torch.utils.config import SolverConfig
-
-# flags of `python -m relp_tpu` that this package does not carry yet
-NOT_PORTED = {"--mesh-cols"}
 
 
 def main(argv=None) -> int:
@@ -122,6 +119,10 @@ def main(argv=None) -> int:
         "mixed (an f32 factor first, f64 when it stops contracting); auto = f64",
     )
     ap.add_argument(
+        "--mesh-cols", type=int, default=1, metavar="N",
+        help="shard the column pool over N devices (-1 = all visible)",
+    )
+    ap.add_argument(
         "--mip", action="store_true",
         help="branch-and-bound on INTEGER (INTORG-marked) variables",
     )
@@ -153,14 +154,7 @@ def main(argv=None) -> int:
         "tighten bounds, so printed rhs values/ranges may differ from the "
         "file — combine with --no-presolve to range the model exactly as written",
     )
-    args, extra = ap.parse_known_args(argv)
-    for token in extra:
-        flag = token.split("=", 1)[0]
-        if flag in NOT_PORTED:
-            ap.exit(2, f"relp_tpu_torch: {flag} is not ported yet (see "
-                       "ROADMAP.md, queue 1); use python -m relp_tpu for it\n")
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
 
     config = SolverConfig(
         max_iter=args.max_iter,
@@ -185,6 +179,7 @@ def main(argv=None) -> int:
         ipm_accept=args.ipm_accept,
         ipm_max_iter=args.ipm_max_iter,
         ipm_ladder=args.ipm_ladder,
+        mesh_cols=args.mesh_cols,
     )
 
     t0 = time.perf_counter()

@@ -435,18 +435,29 @@ def solve_pdhg_batched(
     ``c``, ``lb``, ``ub`` ``[L, n]``, numpy arrays or tensors, in f64.  Each
     lane takes η₀ = 0.9/‖A_s‖₂ and runs until its KKT < ``tol`` or the
     rounds are used up.  Returns the final lane-batched :class:`PdhgState`
-    (statuses are per lane).  ``mesh`` is ROADMAP.md queue 1's multi-device
-    item and raises; ``device=None`` takes a tensor ``A``'s device, else
-    reads ``RELP_TPU_TORCH_DEVICE``."""
+    (statuses are per lane).  ``device=None`` takes a tensor ``A``'s device,
+    else reads ``RELP_TPU_TORCH_DEVICE``.  A ``mesh`` (``parallel/mesh.py``)
+    puts the scenarios over 'batch' as ``parallel.solve_batched`` does: one
+    group of lanes per 'batch' row on its first device, the states back in
+    lane order on the first row's device; each lane takes the steps it takes
+    unmeshed."""
     import numpy as np
 
     from relp_tpu_torch.ops.amatrix import LaneDenseMatrix
     from relp_tpu_torch.utils.device import resolve_device
 
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_pdhg_batched(mesh=...) is not ported to relp_tpu_torch yet "
-            "(ROADMAP.md queue 1, multi-device)")
+        from relp_tpu_torch.parallel.batched import gather_lanes, lane_groups
+
+        groups = lane_groups(b.shape[0], mesh)
+        if not groups:
+            raise ValueError("this process holds no 'batch' row of the mesh")
+        outs = [solve_pdhg_batched(A[lanes] if A.ndim == 3 else A,
+                                   *(v[lanes] for v in (b, c, lb, ub)),
+                                   round_len=round_len, max_rounds=max_rounds, tol=tol,
+                                   variant=variant, device=mesh.devices[row][0])
+                for row, lanes in groups]
+        return gather_lanes(outs, mesh.devices[groups[0][0]][0])
     dev = A.device if device is None and torch.is_tensor(A) else resolve_device(device)
     A, b, c, lb, ub = (torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v) else v,
                                                   np.float64), device=dev).contiguous()

@@ -4,8 +4,7 @@ Counterpart of reference ``src/io/mps/number/parse.rs:11-80``: the reference
 parses decimal text *exactly* into rationals (digits / 10^k, no float
 round-trip).  Here the default target is float64 (Python's ``float`` performs
 correctly-rounded decimal→binary conversion), with an optional exact
-``fractions.Fraction`` path (the exact verifier that uses it is not ported
-yet).
+``fractions.Fraction`` path (``parse_exact``).
 
 Fortran-style ``D`` exponents (``1.5D+02``) found in some SIF files are
 accepted.

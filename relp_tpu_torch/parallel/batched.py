@@ -7,10 +7,21 @@ together, each lane masked so that a finished one stops changing, against
 one shared dense ``A`` (a 2-D ``A``: one device copy serves every lane) or a
 stacked ``A[L, m, n]``.
 
+With a ``mesh`` (``parallel/mesh.py``) the scenarios go over 'batch': the
+lanes are cut into one group per 'batch' row, in order, and group ``i`` runs
+on row ``i``'s first device; the outputs come back in lane order on the first
+row's device.  The lane count must divide by the 'batch' size (the JAX
+package's ``device_put`` with ``P("batch")`` raises likewise).  Under a mesh
+that spans processes (``multihost.global_solver_mesh``) a process solves the
+groups of the rows it owns and returns their lanes; ``multihost.
+process_allgather`` assembles the fleet.
+
 Differences from the JAX package: one call per solve, so the chunked
 continuation (``device_chunk_iters`` and its warm-start loop, which served
-the TPU's execution watchdog) is not ported; a ``mesh`` is ROADMAP.md
-queue 1's multi-device item and raises.
+the TPU's execution watchdog) is not ported; the groups of one process run
+one after another; the columns are not split over 'cols' inside the lane
+engine (the JAX package splits them when the 'cols' size divides the column
+count, for the same answer).
 """
 
 from __future__ import annotations
@@ -29,6 +40,27 @@ def _tensor(v, dev, dtype=torch.float64):
     return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev).contiguous()
 
 
+def lane_groups(L: int, mesh):
+    """``(row, lanes)`` of the 'batch' rows this process holds: row ``i``
+    takes the ``L / batch`` lanes from ``i·L/batch``.  Raises ``ValueError``
+    when ``L`` does not divide by the 'batch' size."""
+    rows = mesh.shape["batch"]
+    if L % rows != 0:
+        raise ValueError(f"{L} scenarios do not divide over the 'batch' axis of size {rows}")
+    per = L // rows
+    return [(i, slice(i * per, (i + 1) * per)) for i in mesh.local_rows()]
+
+
+def gather_lanes(outs, dev):
+    """The lane groups' outputs (NamedTuples with a leading lane axis on every
+    tensor field) as one, in order, on ``dev``; integer fields add up."""
+    first = outs[0]
+    return type(first)(*(
+        torch.cat([getattr(o, f).to(dev) for o in outs]) if torch.is_tensor(getattr(first, f))
+        else sum(getattr(o, f) for o in outs)
+        for f in first._fields))
+
+
 def solve_batched(A, b, c, lb, ub, cfg: SolverConfig, max_iter: int, mesh=None,
                   warm=None, device: DeviceLike = None) -> SolveOutput:
     """Solve a stack of LPs: ``b`` ``[L, m]``, ``c``, ``lb``, ``ub``
@@ -38,12 +70,24 @@ def solve_batched(A, b, c, lb, ub, cfg: SolverConfig, max_iter: int, mesh=None,
     ``warm`` optionally carries stacked warm-start arrays ``dict(basis0,
     vstat0, art_sign0, phase0)`` (one row per scenario), as the JAX package
     takes them.  ``device=None`` takes a tensor ``A``'s device, else reads
-    ``RELP_TPU_TORCH_DEVICE``.  Returns a ``SolveOutput`` whose fields carry a
+    ``RELP_TPU_TORCH_DEVICE``; a ``mesh`` places the lane groups on its
+    'batch' rows instead.  Returns a ``SolveOutput`` whose fields carry a
     leading lane axis."""
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_batched(mesh=...) is not ported to relp_tpu_torch yet "
-            "(ROADMAP.md queue 1, multi-device)")
+        groups = lane_groups(b.shape[0], mesh)
+        if not groups:
+            raise ValueError("this process holds no 'batch' row of the mesh")
+
+        def part(v, lanes):  # a lane's rows; one phase0 for every lane stays as it is
+            return v if np.ndim(v) == 0 else v[lanes]
+
+        outs = [solve_batched(part(A, lanes) if A.ndim == 3 else A,
+                              *(v[lanes] for v in (b, c, lb, ub)), cfg, max_iter,
+                              warm=None if warm is None else
+                              {k: part(v, lanes) for k, v in warm.items()},
+                              device=mesh.devices[row][0])
+                for row, lanes in groups]
+        return gather_lanes(outs, mesh.devices[groups[0][0]][0])
     if device is None and torch.is_tensor(A):
         dev = A.device
     else:

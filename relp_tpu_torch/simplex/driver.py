@@ -27,6 +27,13 @@ cleanup on the host LU of simplex/lu_host.py, one warm-started certifying
 solves from scratch, as in the JAX package; ``SolveMetrics.engine`` names the
 engine whose answer is returned.
 
+``config.mesh_cols`` shards the column pool of the primal engine's operator
+(``_Padded.primal_A``) and of the first-order engine's over the solve's
+``devices`` (``parallel/sharded.py``), as the JAX driver's two mesh branches
+do; a mesh that will shard makes the first-order engine take the operator
+``matrix_format`` picks in place of the bricks.  The dual and the interior
+point run on one device.
+
 ``solve_general_forms_batched`` solves a fleet of LPs: per-LP presolve and
 lowering, grouping by padded shape, and per group the lane-batched primal
 (``parallel.solve_batched`` over ``core.solve_core_lanes``), the
@@ -40,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -54,7 +61,7 @@ from relp_tpu_torch.ops.amatrix import DenseMatrix, ell_from_csc, hybrid_from_cs
 from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.simplex.core import SolveOutput, solve_core
 from relp_tpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
-from relp_tpu_torch.utils.device import DeviceLike, resolve_device
+from relp_tpu_torch.utils.device import DeviceLike, device_list, resolve_device
 from relp_tpu_torch.utils.metrics import SolveMetrics, Timer
 
 
@@ -174,11 +181,14 @@ class _Padded:
     ub: np.ndarray
     A_csc: sp.csc_matrix       # cf.A, m × n
     max_iter: int
+    # the devices config.mesh_cols shards the operators over (None: one)
+    shard_to: Optional[List[torch.device]] = None
     iterations: int = 0        # of every engine that ran
     host_reads: int = 0
     lu_flips: int = 0          # bound flips of the host LU dual's runs
     _a_pad: Optional[sp.csc_matrix] = None
     _device_A: Optional[tuple] = None
+    _primal_A: Optional[object] = None
 
     @classmethod
     def of(cls, cf: ComputationalForm, config: SolverConfig, dev: torch.device) -> "_Padded":
@@ -213,6 +223,18 @@ class _Padded:
                                             self.config, self.dev)
         return self._device_A
 
+    def primal_A(self):
+        """The primal engine's operator: ``device_A``'s, column-sharded over
+        ``shard_to`` when config.mesh_cols asked for a mesh that shards."""
+        if self._primal_A is None:
+            A = self.device_A()[0]
+            if self.shard_to is not None:
+                from relp_tpu_torch.parallel.sharded import shard_operator
+
+                A = shard_operator(A, self.shard_to)
+            self._primal_A = A
+        return self._primal_A
+
     def host_art_sign(self, vstat0):
         """Artificial signs from the residual at the nonbasic point."""
         at_lower = (vstat0 == st.NB_LOWER) | (vstat0 == st.NB_FIXED)
@@ -224,17 +246,18 @@ class _Padded:
 
     def solve_core(self, lb_run, ub_run, warm, budget, config=None):
         """One device solve of the primal engine against one bound set."""
-        f64 = dict(dtype=torch.float64, device=self.dev)
+        A = self.primal_A()
+        f64 = dict(dtype=torch.float64, device=A.device)
         b_t, c_t, lb_t, ub_t = (torch.as_tensor(v, **f64)
                                 for v in (self.b, self.c, lb_run, ub_run))
 
         def tensor(v):
             v = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
             return torch.as_tensor(v.astype(np.int64) if v.dtype.kind == "i" else v,
-                                   device=self.dev)
+                                   device=A.device)
 
         warm_t = {k: (int(v) if k == "phase0" else tensor(v)) for k, v in warm.items()}
-        out = solve_core(self.device_A()[0], b_t, c_t, lb_t, ub_t,
+        out = solve_core(A, b_t, c_t, lb_t, ub_t,
                          self.config if config is None else config, budget, **warm_t)
         self.iterations += int(out.it)
         self.host_reads += out.host_reads
@@ -303,7 +326,9 @@ def _brick_operator(csc_s, cf: ComputationalForm, m_pad: int, n_pad: int,
 
 def _pdlp_operator(p: _Padded, d_r, d_c, csc_s):
     """The first-order engine's operator of the scaled matrix ``csc_s`` and
-    the scaled ``[b, c, lb, ub]`` (host numpy) in its space.  Returns
+    the scaled ``[b, c, lb, ub]`` (host numpy) in its space; under a mesh
+    that shards (``p.shard_to``) the operator matrix_format picks,
+    column-sharded over those devices, whatever ``pdlp_matrix`` says.  Returns
     ``(operator, vectors, rpad, cpad, matrix_format, fo_matrix)``:
     ``rpad``/``cpad`` map the operator's rows and columns to padded ones
     (None: the identity), ``matrix_format`` names the simplex operator (what
@@ -322,9 +347,13 @@ def _pdlp_operator(p: _Padded, d_r, d_c, csc_s):
         lb_h = np.where(np.isfinite(p.lb), p.lb / d_c, p.lb)
         ub_h = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
     vecs = [p.b * d_r, p.c * d_c, lb_h, ub_h]
-    if p.config.pdlp_matrix != "bricks":
+    if p.config.pdlp_matrix != "bricks" or p.shard_to is not None:
         A_s, fmt = _device_matrix(SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), p.m_pad, p.n_pad,
                                   p.config, p.dev)
+        if p.shard_to is not None:
+            from relp_tpu_torch.parallel.sharded import shard_operator
+
+            A_s = shard_operator(A_s, p.shard_to)
         return A_s, vecs, None, None, fmt, fmt
     A_s, rpad, cpad = _brick_operator(csc_s, cf, p.m_pad, p.n_pad, p.dev)
     mp, np_ = A_s.shape
@@ -343,7 +372,11 @@ def _run_pdlp(p: _Padded, fo: dict):
     ``SolveMetrics.matrix_format`` reports, as in the JAX package) and the
     first-order operator's.
 
-    Port of ``_run_pdlp`` of the JAX driver without its mesh branch.  Under
+    Port of ``_run_pdlp`` of the JAX driver.  Its mesh branch: when
+    config.mesh_cols asks for a mesh that will shard, the operator is the one
+    matrix_format picks (never the bricks: a brick tile mixes columns),
+    column-sharded over the devices (``parallel/sharded.py``); a mesh that
+    will not shard logs the JAX package's warning and keeps the layout.  Under
     ``pdlp_matrix="bricks"`` the solve runs on the grouped brick operator
     (``_brick_operator``) in its RCM-permuted space and the point is
     un-permuted before it leaves.  The state, the best snapshot and the
@@ -358,11 +391,12 @@ def _run_pdlp(p: _Padded, fo: dict):
     from relp_tpu_torch.utils.metrics import logger as _log
 
     t_setup = time.perf_counter()
-    config, dev, cf = p.config, p.dev, p.cf
+    config, cf = p.config, p.cf
     m_pad, n_pad = p.m_pad, p.n_pad
     d_r, d_c, csc_s = _pdlp_scaling(p)
     A_s, vecs, rpad, cpad, fo["matrix_format"], fo["fo_matrix"] = _pdlp_operator(
         p, d_r, d_c, csc_s)
+    dev = A_s.device
 
     def unpermute(v, perm, size):
         """A point of the operator's space in padded coordinates."""
@@ -1005,10 +1039,14 @@ def solve_computational_form(
     config: SolverConfig = DEFAULT_CONFIG,
     warm_start_builder=None,
     device: DeviceLike = None,
+    devices=None,
 ) -> SimplexResult:
     """``warm_start_builder(m_pad, n_pad) -> (basis0, vstat0)`` optionally
-    provides an initial basis.  ``config.algorithm="pdlp"`` (without a warm
-    start or perturbation) first runs the first-order engine and, under
+    provides an initial basis.  ``devices`` is what ``config.mesh_cols``
+    shards over (default: every visible device of ``device``'s kind; a list
+    may repeat a device), the first of them the lead device.
+    ``config.algorithm="pdlp"`` (without a warm start or perturbation) first
+    runs the first-order engine and, under
     ``pdlp_crossover``, recovers the vertex behind its point;
     ``config.algorithm="dual"`` (under the same conditions) first runs the
     dual simplex from scratch.  Where that engine cannot certify optimality
@@ -1024,6 +1062,18 @@ def solve_computational_form(
 
     p = _Padded.of(cf, config, dev)
     m_pad, n_pad, lb, ub = p.m_pad, p.n_pad, p.lb, p.ub
+    # the engines that run first and fall back to the primal (pdlp, ipm, dual)
+    cold = warm_start_builder is None and config.perturb == 0
+    if config.mesh_cols not in (0, 1):
+        # the JAX driver's two mesh branches (driver.py:239-248, 905-926),
+        # decided once here; -1 over one device shards nothing and keeps the
+        # first-order layout, where the JAX driver still drops the bricks.
+        # Each engine shards its operator when it first runs.
+        from relp_tpu_torch.parallel.sharded import shard_devices
+
+        layout = "bricks" if config.pdlp_matrix == "bricks" else "ell"
+        p.shard_to = shard_devices(config.mesh_cols, n_pad, device_list(devices, dev),
+                                   layout if config.algorithm == "pdlp" and cold else None)
     # mixed-precision pricing only pays once the pricing product is large;
     # for small problems the extra casts and the confirmation outweigh it
     if config.mixed_pricing and m_pad * n_pad < 1 << 17:
@@ -1051,7 +1101,7 @@ def solve_computational_form(
         outs = []
         out = None
         algo = config.algorithm
-        if algo in ("pdlp", "ipm") and warm_start_builder is None and config.perturb == 0:
+        if algo in ("pdlp", "ipm") and cold:
             # None: fall back to the primal below
             out = _run_pdlp(p, fo) if algo == "pdlp" else _run_ipm(p, fo)
             engine = algo if out is not None else f"{algo}→primal"
@@ -1059,7 +1109,7 @@ def solve_computational_form(
                 vertex = _crossover(p, out, fo)
                 if vertex is not None:
                     out, engine = vertex, f"{algo}+crossover"
-        if config.algorithm == "dual" and warm_start_builder is None and config.perturb == 0:
+        if config.algorithm == "dual" and cold:
             out = _run_dual(p, fo)  # None: fall back to the primal below
             engine = fo["engine"] if out is not None else "dual→primal"
         if out is None:
@@ -1223,11 +1273,13 @@ def solve_general_form(
     config: SolverConfig = DEFAULT_CONFIG,
     device: DeviceLike = None,
     initial_basis=None,
+    devices=None,
 ) -> GeneralFormResult:
     """End-to-end: GeneralForm → presolve → computational form → device
     solve → Solution.  ``device=None`` reads ``RELP_TPU_TORCH_DEVICE``
     (default ``"cuda"``); ``initial_basis`` is an ``MpsBasis``
-    (io/basis_file.py) to warm-start from."""
+    (io/basis_file.py) to warm-start from; ``devices`` is what
+    ``config.mesh_cols`` shards over (see :func:`solve_computational_form`)."""
     from relp_tpu_torch.model.computational_form import build_computational_form
 
     dev = resolve_device(device)
@@ -1249,7 +1301,8 @@ def solve_general_form(
     cf = build_computational_form(general, scale=config.scale)
     builder = (basis_file_warm_start(initial_basis, general, cf)
                if initial_basis is not None else None)
-    res = solve_computational_form(cf, config, warm_start_builder=builder, device=dev)
+    res = solve_computational_form(cf, config, warm_start_builder=builder, device=dev,
+                                   devices=devices)
     return _finish_general(general, cf, res)
 
 

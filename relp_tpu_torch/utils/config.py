@@ -3,21 +3,15 @@
 Field names and defaults are those of ``relp_tpu.utils.config.SolverConfig``
 for every field this package honours, so a config reads the same in both
 packages.  Fields that existed only for the TPU (``device_chunk_iters``,
-``refactor_external_m``, ``newton_refactor``, ``bucket_shapes``) are gone;
-a field of a part not yet ported raises ``NotImplementedError`` when set to
-a value this package does not run (``mesh_cols`` other than 1), naming the
-ROADMAP.md entry that will port it.  Every choice field is validated: an
-unknown value is a ``ValueError``.
+``refactor_external_m``, ``newton_refactor``, ``bucket_shapes``) are gone.
+Every choice field is validated: an unknown value is a ``ValueError``, and
+``mesh_cols`` must be an int.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-# field -> (values this package runs, ROADMAP.md entry that ports the rest)
-_UNPORTED = {
-    "mesh_cols": ((1,), "queue 1, multi-device"),
-}
+import numbers
 
 _CHOICES = {
     "algorithm": ("primal", "dual", "pdlp", "ipm"),
@@ -178,6 +172,17 @@ class SolverConfig:
     # (1+|bound|) (seeded), solve, then re-solve with the true bounds from
     # the perturbed optimum; 0 = off
     perturb: float = 0.0
+    # shard the column pool of a single primal or first-order solve over this
+    # many devices along the mesh's 'cols' axis (parallel/sharded.py); the
+    # devices are the solve's ``devices`` list (default: every visible device
+    # of its kind).  0 and 1 mean one device, k > 1 means k devices, k < 0
+    # every device of the list.  The JAX package reads 0 in two ways: its
+    # driver as one device (relp_tpu/simplex/driver.py:243, 913), its
+    # ``maybe_shard`` as every device (relp_tpu/parallel/sharded.py:86); the
+    # driver never hands 0 to ``maybe_shard``, and this package takes the
+    # driver's reading.  A count that does not divide the padded column count,
+    # or more devices than the list holds, logs a warning and solves on one
+    # device.  The dual and the interior point ignore it.
     mesh_cols: int = 1
 
     scale: bool = True
@@ -189,12 +194,8 @@ class SolverConfig:
     col_align: int = 128
 
     def __post_init__(self):
-        for name, (ported, entry) in _UNPORTED.items():
-            if getattr(self, name) not in ported:
-                raise NotImplementedError(
-                    f"SolverConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"to relp_tpu_torch yet (ROADMAP.md {entry})"
-                )
+        if not isinstance(self.mesh_cols, numbers.Integral) or isinstance(self.mesh_cols, bool):
+            raise ValueError(f"SolverConfig.mesh_cols must be an int, got {self.mesh_cols!r}")
         for name, allowed in _CHOICES.items():
             if getattr(self, name) not in allowed:
                 raise ValueError(

@@ -149,9 +149,21 @@ def test_a_lane_that_finishes_early_stops_changing():
 
 
 def test_solve_batched_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        solve_batched(*_stack(8, 32, 3, True), cfg=SolverConfig(), max_iter=100, mesh=object(),
-                      device="cpu")
+    """A mesh is no longer refused: the lanes of a shared A solve over the
+    'batch' rows of a mesh (three rows of one lane each) as they solve
+    unmeshed, and a lane count that does not divide over 'batch' raises."""
+    from relp_tpu_torch.parallel import make_solver_mesh
+
+    arrays = _stack(8, 32, 3, True)
+    mesh = make_solver_mesh(batch=3, cols=1, devices=["cpu"] * 3)
+    out = solve_batched(*arrays, cfg=SolverConfig(), max_iter=100, mesh=mesh)
+    flat = solve_batched(*arrays, cfg=SolverConfig(), max_iter=100, device="cpu")
+    assert out.status.tolist() == flat.status.tolist() and out.it.tolist() == flat.it.tolist()
+    assert torch.equal(out.basis, flat.basis)
+    torch.testing.assert_close(out.obj, flat.obj, rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="do not divide"):
+        solve_batched(*arrays, cfg=SolverConfig(), max_iter=100,
+                      mesh=make_solver_mesh(batch=2, cols=1, devices=["cpu"] * 2))
 
 
 def dense_fleet(el, gf, m=32, n=64, lanes=4):

@@ -643,3 +643,83 @@ def test_pdlp_on_bricks_on_the_card_matches_the_cpu(cuda, tmp_path, crossover):
     assert card.solution.objective_value == pytest.approx(cpu.solution.objective_value,
                                                           rel=1e-9 if crossover else 1e-6)
     assert card.solution.objective_value == pytest.approx(flow, rel=1e-9 if crossover else 1e-5)
+
+
+def _selection_state(n, m, seed, dev, bland):
+    """A made-up state to choose from: statuses over every class, a few
+    columns that cannot enter, devex weights in [1, 4)."""
+    from relp_tpu_torch.ops.select_epilogue import Selection
+
+    rng = np.random.default_rng(seed)
+    vstat = torch.as_tensor(rng.integers(0, 4, n + m), device=dev)
+    can_enter = torch.as_tensor(rng.random(n) > 0.05, device=dev)
+    w = torch.as_tensor(1.0 + 3.0 * rng.random(n), device=dev)
+    return lambda devex: Selection(vstat, can_enter, w, torch.tensor(bland, device=dev),
+                                   1e-7, devex)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["ell", "dense"])
+@pytest.mark.parametrize("devex,bland", [(True, False), (False, False), (True, True)])
+def test_sharded_pricing_chooses_as_the_single_operator(cuda, dtype, kind, devex, bland):
+    """Two shards on one card choose the single operator's ``(q, has, d_q)``
+    bit for bit: the ELL max-flow pool at N = 4,096 (each column summed in
+    slot order) and the dense 256 × 512 LP (whose column blocks keep the
+    single launch's row plan), over the whole pool and over a window that
+    crosses the shard boundary."""
+    from relp_tpu_torch.ops.amatrix import DenseMatrix, ell_from_csc
+    from relp_tpu_torch.ops.dense_kernels import slices_for
+    from relp_tpu_torch.parallel.sharded import shard_operator
+
+    if kind == "ell":
+        arcs = random_arcs(4096, 8, seed=7)
+        csc = max_flow_lp(4096, arcs, 0, 4095).A.tocsc()
+        m, n = 4096, 32768
+        one = ell_from_csc(csc, m, n, device=cuda)
+    else:
+        A, _, _ = dense_lp_data(256, 512)
+        m, n = A.shape
+        one = DenseMatrix(torch.as_tensor(A, device=cuda))
+        assert slices_for(m, n, 4) == slices_for(m, n // 2, 4)
+        assert slices_for(m, n, 8) == slices_for(m, n // 2, 8)
+    one = one.with_f32()
+    sh = shard_operator(one, [torch.device("cuda", 0)] * 2)
+    rng = np.random.default_rng(11)
+    pi = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=cuda)
+    c = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    sel = _selection_state(n, m, 5, cuda, bland)(devex)
+    launches = (ell_price_select if kind == "ell" else dense_price_select).launches
+    if dtype == torch.float64:
+        got, want = sh.price_select(c, pi, sel), one.price_select(c, pi, sel)
+        windows = []
+    else:
+        got, want = sh.price32_select(c, pi, sel), one.price32_select(c, pi, sel)
+        lo, w = n // 4, n // 2
+        windows = [(sh.price32_select(c[lo:lo + w], pi, sel, lo, w),
+                    one.price32_select(c[lo:lo + w], pi, sel, lo, w))]
+    torch.cuda.synchronize()
+    for g, x in [(got, want)] + windows:
+        assert int(g[0]) == int(x[0]) and bool(g[1]) == bool(x[1])
+        assert torch.equal(g[2], x[2]) and g[2].dtype == dtype
+    calls = 1 + len(windows)
+    assert (ell_price_select if kind == "ell" else dense_price_select).launches == \
+        launches + 3 * calls  # two shards and the single operator per call
+
+
+def test_sharded_max_flow_on_the_card_takes_the_single_pivots(cuda, tmp_path):
+    """The N = 1,024 max flow over two shards of one card: the single
+    solve's iterations, host reads and objective, scipy's max flow."""
+    arcs = random_arcs(1024, 8, seed=7)
+    u, v, cap = (np.array(col) for col in zip(*arcs))
+    flow = maximum_flow(sp.csr_matrix((cap.astype(np.int32), (u, v)), shape=(1024, 1024)),
+                        0, 1023).flow_value
+    path = tmp_path / "maxflow_1024.mps"
+    export_mps(max_flow_lp(1024, arcs, 0, 1023), str(path))
+    one = api.solve(path, SolverConfig(matrix_format="ell"), device=cuda)
+    launches = ell_price_select.launches
+    sh = api.solve(path, SolverConfig(matrix_format="ell", mesh_cols=2), device=cuda,
+                   devices=["cuda:0", "cuda:0"])
+    assert sh.solution.objective_value == one.solution.objective_value == flow
+    m1, m2 = one.simplex.metrics, sh.simplex.metrics
+    assert m2.iterations == m1.iterations and m2.host_reads == m1.host_reads
+    assert ell_price_select.launches - launches >= 2 * m2.iterations

@@ -185,13 +185,17 @@ def test_cli_mip_json_carries_the_search_counters(tmp_path, capsys):
     assert {"nodes", "lp_iterations", "best_bound", "objective"} <= set(payload)
 
 
-def test_cli_refuses_flags_not_ported(tmp_path, capsys):
+def test_cli_refuses_flags_not_ported(tmp_path, capsys, monkeypatch):
+    """Every flag of the JAX package's CLI is ported now: --mesh-cols 2
+    solves (on one CPU it logs that it cannot shard and solves there)."""
     path = tmp_path / "testprob.mps"
     path.write_text(WIKI_MPS)
+    monkeypatch.setenv("RELP_TPU_TORCH_DEVICE", "cpu")
+    assert cli.main(["--mesh-cols", "2", "-q", str(path)]) == 0
+    assert capsys.readouterr().out.strip() == "objective -8"
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--mesh-cols", "2", str(path)])
+        cli.main(["--no-such-flag", str(path)])
     assert exc.value.code == 2
-    assert "--mesh-cols is not ported" in capsys.readouterr().err
 
 
 def test_package_never_imports_jax():
@@ -237,8 +241,11 @@ def test_config_refuses_engines_not_ported():
     assert SolverConfig(algorithm="dual").dual_ratio == "sort"  # the JAX default is "bisect"
     assert SolverConfig(algorithm="ipm").ipm_ladder == "auto"
     assert SolverConfig(algorithm="pdlp", pdlp_matrix="bricks").pdlp_matrix == "bricks"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SolverConfig(mesh_cols=2)
+    for k in (0, 1, 2, -1):  # every int: 0 and 1 one device, -1 every device
+        assert SolverConfig(mesh_cols=k).mesh_cols == k
+    for bad in (2.0, "2", True):
+        with pytest.raises(ValueError):
+            SolverConfig(mesh_cols=bad)
     with pytest.raises(ValueError):
         SolverConfig(pricing="steepest")
     with pytest.raises(ValueError):

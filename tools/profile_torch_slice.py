@@ -5,6 +5,7 @@
                                                     fleet-primal|fleet-pdlp|fleet-ipm]
                                          [--nodes 4096] [--iters 600] [--out FILE]
                                          [--crossover] [--pdlp-matrix auto|bricks]
+                                         [--mesh-cols K]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
 LP of ``--nodes`` nodes on the ELL operator, or the dense LP at 768 × 1536 on
@@ -14,7 +15,10 @@ host (presolve, computational form), then runs the device solve for
 ``torch.profiler`` (CPU and CUDA activities).  Prints the wall time per
 iteration, the device's busy share of the profiled wall (kernel time summed
 over the run), kernel launches per iteration, and the heaviest operators by
-device and by host time; ``--out`` receives the full profiler tables.
+device and by host time; ``--out`` receives the full profiler tables.  With
+``--mesh-cols K`` the solve's column pool is split over K shards of the one
+card (``devices=["cuda:0"] * K``, ``parallel/sharded.py``): what sharding
+costs an iteration.
 
 ``--problem pdlp`` profiles the first-order engine's rounds instead: the
 max-flow LP is scaled and sent to the device as the driver's ``_run_pdlp``
@@ -510,6 +514,8 @@ def main(argv=None) -> int:
                     help="with --problem pdlp: the first-order operator (SolverConfig.pdlp_matrix)")
     ap.add_argument("--crossover", action="store_true",
                     help="with --problem ipm: time the crossover too (f64 ladder only)")
+    ap.add_argument("--mesh-cols", type=int, default=1,
+                    help="with --problem maxflow|dense: shards of the column pool, all on cuda:0")
     ap.add_argument("--count-ops", action="store_true",
                     help="with --problem dual: count tensor operations on the CPU instead")
     args = ap.parse_args(argv)
@@ -553,10 +559,11 @@ def main(argv=None) -> int:
         general, name = dense_lp(m, n), f"dense LP {m}x{n}"
     presolve(general)
     cf = build_computational_form(general, scale=True)
-    config = SolverConfig(max_iter=args.iters)
+    config = SolverConfig(max_iter=args.iters, mesh_cols=args.mesh_cols)
+    shards = ["cuda:0"] * max(args.mesh_cols, 1)
 
     def run():
-        res = solve_computational_form(cf, config, device="cuda")
+        res = solve_computational_form(cf, config, device="cuda", devices=shards)
         torch.cuda.synchronize()
         return res
 
@@ -577,7 +584,7 @@ def main(argv=None) -> int:
     launches = sum(a.count for a in kernels)
     it = max(met.iterations, 1)
     lines = [
-        f"[profile] {name}: m={met.m} n={met.n} "
+        f"[profile] {name} mesh_cols={args.mesh_cols}: m={met.m} n={met.n} "
         f"(padded {met.m_padded}x{met.n_padded}) format {met.matrix_format} "
         f"iterations {met.iterations} status {met.status} [{smi}]",
         f"[profile] unprofiled: wall {wall:.3f} s = {wall / it * 1e3:.3f} ms/iter; "
