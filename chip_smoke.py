@@ -35,7 +35,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              dense LP's shared operator, 16 lanes against the N = 1,024 max
              flow's dense operator (the first-order fleet's) and a stacked
              A[4, 256, 512], and ``dense_price_select_lanes`` on the state of
-             a lane-batched solve cut mid-way (and with dead lanes), each
+             a lane-batched solve cut mid-way (and with dead lanes; and on
+             the partial-pricing windows [256, 512) and [129, 329)), each
              lane also held bit for bit against the single-vector kernel on
              its data, each row naming the lanes a block served.  Each pricing kernel,
              ``ell_spmv`` and both brick kernels are run twice and must give the same bits.  Device time per launch (CUDA events over
@@ -144,7 +145,21 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              in every fleet here), warm from one base solve, every lane
              against HiGHS, with
              ``dense_price_select_lanes`` and ``dense_price_lanes`` at least
-             once per batched iteration; the first-order fleet on 16
+             once per batched iteration; the same 64 lanes again under each
+             primal option through ``parallel.solve_batched`` from the
+             default run's warm start (``inverse="eta"``,
+             ``price_blocks=2`` with its windowed lane-select launches
+             counted, ``trace_iters``, ``check_every_n=50``) and under all
+             four through ``solve_general_forms_batched`` (its base solve
+             under them too), every lane against HiGHS, the lane of the
+             median and the lane of the most iterations against their
+             single ``solve_core`` from the same warm basis (iterations,
+             basis, the trace's phase, events, q and r), under
+             ``check_every_n`` each lane's check value against a violation
+             planted at step 0 and at step 50 (only while it is live), host
+             reads per batched iteration no more than the default run's,
+             each run's wall, launches and peak memory beside the default
+             run's; the first-order fleet on 16
              perturbed max flows at N = 1,024 (shared A, presolve off), each
              against ``scipy``'s max flow, with ``dense_price_lanes`` at least
              once per PDHG step.  Wall, LPs/s, iterations, host reads per
@@ -203,6 +218,7 @@ kernel report, one JSON object; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import multiprocessing
@@ -246,6 +262,11 @@ FLEET_PRIMAL_SHAPE = (256, 512)
 FLEET_FLOW_LANES = 16
 FLEET_FLOW_NODES = 1024
 RAGGED_LANES = 17       # a lane count that leaves the last group of lanes ragged
+LANE_WINDOWS = ((256, 256), (129, 200))  # partial-pricing windows of the lane select
+FLEET_OPTIONS = (  # the primal options, each through the primal fleet (check: every 50 steps)
+    ("inverse=eta", dict(inverse="eta")), ("price_blocks=2", dict(price_blocks=2)),
+    ("trace_iters", dict(trace_iters=True)), ("check_every_n=50", dict(check_every_n=50)))
+TRACE_EXACT = [0, 5, 6, 7]  # trace columns phase, events, q, r
 # NVIDIA's H100 SXM data sheet: device memory rate, the float32 rate outside
 # the tensor cores, and the float64 rate on them (the larger of the two
 # float64 rates, 34 TFLOP/s outside them): a bound is the least time the card
@@ -978,6 +999,33 @@ def _kernels_lanes(smi, dev, rng, dense_op):
               "dense_price_select's bit for bit; dead lanes (part of a group, a whole group) "
               "kept their outputs")
         report[(tag, "select")] = row
+        # the partial-pricing window (price_blocks: a block of columns per
+        # step), aligned and not, with the window's costs
+        for j0, w in LANE_WINDOWS:
+            cw = c[:, j0:j0 + w].contiguous()
+            _compare(
+                f"dense_price_select_lanes {tag} {L} lanes of {m}x{n}, window [{j0}, {j0 + w}), "
+                f"mid-solve state, group {lane_plan(L, m, w, A.element_size()).group}",
+                lambda: dense_price_select_lanes(A, v, cw, *sel, j0, w),
+                lambda: dense_price_select_lanes_plain(A, v, cw, *sel, j0, w), tol, smi,
+                nbytes=m * w * A.element_size() + _nbytes(v, cw) + side * w // n,
+                flops=2 * L * m * w, tag=tag, same_bits=True,
+                scale=float((v.abs() @ A[:, j0:j0 + w].abs()).max()), plain_runs=10)
+            q, has, d_q = dense_price_select_lanes(A, v, cw, *sel, j0, w)
+            if not all(
+                (int(q[s]), bool(has[s])) == tuple(map(lambda t: t.item(), one[:2]))
+                and torch.equal(d_q[s], one[2])
+                for s in range(L)
+                for one in [dense_price_select(A, v[s].contiguous(), cw[s].contiguous(),
+                                               sel.vstat[s].contiguous(),
+                                               sel.can_enter[s].contiguous(),
+                                               sel.w[s].contiguous(), sel.bland[s],
+                                               sel.eps_dual, sel.devex, j0, w)]):
+                raise AssertionError(f"[kernels] dense_price_select_lanes {tag} window "
+                                     f"[{j0}, {j0 + w}): a lane differs from the single-vector "
+                                     "dense_price_select on the window")
+            print(f"[kernels]   each lane's (q, has, d_q) on the window equals the single-vector "
+                  "dense_price_select's on it bit for bit")
     flow_label = next(k for k in cases if k.startswith("max-flow"))
     # the fleets' launches: the first-order fleet's f32 C − Y·A at N = 1,024,
     # the primal fleet's f32 scan
@@ -2146,6 +2194,72 @@ def _all_certified(engine, info):
                              f"{info['certified']} of {info['lanes']} lanes")
 
 
+@contextlib.contextmanager
+def _lane_calls():
+    """Record each ``parallel.batched.solve_batched`` call the fleet driver
+    makes (its arguments, its output and its wall) and pass it on."""
+    import torch
+
+    from relp_tpu_torch.parallel import batched
+
+    calls = []
+    solve = batched.solve_batched
+
+    def recorded(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((args, kwargs, out, time.perf_counter() - t0))
+        return out
+
+    batched.solve_batched = recorded
+    try:
+        yield calls
+    finally:
+        batched.solve_batched = solve
+
+
+def _lanes_equal_singles(tag, args, kwargs, out, config):
+    """Raise unless the lane of the median and the lane of the most
+    iterations among those that take more than ``eta_block`` steps (so that
+    an eta block folds and both pricing windows come round) each took its
+    single ``solve_core``'s steps from the same warm basis under the same
+    config: iterations, basis and, under ``trace_iters``, the trace's phase,
+    events, q and r."""
+    import torch
+
+    from relp_tpu_torch.simplex.core import solve_core
+
+    its = out.it.tolist()
+    long = sorted((it, s) for s, it in enumerate(its) if it > config.eta_block)
+    if len(long) < 2:
+        raise AssertionError(f"[fleet] {tag}: fewer than two lanes take more than "
+                             f"{config.eta_block} steps ({its})")
+    lanes = (long[len(long) // 2][1], long[-1][1])
+    dev = out.x.device
+    A, b, c, lb, ub = (torch.as_tensor(v, dtype=torch.float64, device=dev) for v in args)
+    warm = kwargs["warm"]
+    for s in lanes:
+        with torch.no_grad():
+            one = solve_core(A, b[s], c[s], lb[s], ub[s], config, kwargs["max_iter"],
+                             basis0=torch.as_tensor(warm["basis0"][s], device=dev),
+                             vstat0=torch.as_tensor(warm["vstat0"][s], device=dev),
+                             art_sign0=torch.as_tensor(warm["art_sign0"][s], device=dev),
+                             phase0=int(warm["phase0"][s]))
+        it = int(one.it)
+        rows = out.trace[s, :one.trace.shape[0]]
+        if not (it == int(out.it[s]) and torch.equal(one.basis, out.basis[s])
+                and torch.equal(rows[:, TRACE_EXACT], one.trace[:, TRACE_EXACT])
+                and not out.trace[s, it:].any()):
+            raise AssertionError(f"[fleet] {tag}: lane {s} took {int(out.it[s])} iterations, its "
+                                 f"single solve {it}, or their bases or traces differ")
+    print(f"[fleet] {tag}: lanes {list(lanes)} (the median and the most iterations above "
+          f"eta_block {config.eta_block}) equal their single solve_core from the same warm "
+          f"basis (iterations {[int(out.it[s]) for s in lanes]}, basis"
+          f"{', trace rows' if config.trace_iters else ''})")
+
+
 def phase_fleet(smi, launches, fleet_refs):
     """``solve_general_forms_batched`` on the card through each fleet engine."""
     import torch
@@ -2153,11 +2267,11 @@ def phase_fleet(smi, launches, fleet_refs):
     from relp_tpu_torch.simplex.driver import solve_general_forms_batched
     from relp_tpu_torch.utils.config import SolverConfig
 
-    def run(tag, generals, config, names=()):
+    def run(tag, generals, config, names=(), report=True):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         stats = []
-        with counted(names, launches, f"fleet {tag}"):
+        with counted(names, launches if report else {}, f"fleet {tag}"):
             t0 = time.perf_counter()
             results = solve_general_forms_batched(generals, config, stats=stats)
             torch.cuda.synchronize()
@@ -2206,10 +2320,11 @@ def phase_fleet(smi, launches, fleet_refs):
     # it to the iteration limit, in the JAX package's code as in the single
     # solve here (ROADMAP.md queue 3)
     m, n = FLEET_PRIMAL_SHAPE
-    results, info = run(f"primal {m}x{n} (costs moved)",
-                        _fleet_generals(m, n, FLEET_LANES, demand=False),
-                        SolverConfig(presolve=False),
-                        ("dense_price_lanes", "dense_price_select_lanes"))
+    lane_kernels = ("dense_price_lanes", "dense_price_select_lanes")
+    generals = _fleet_generals(m, n, FLEET_LANES, demand=False)
+    with _lane_calls() as calls:
+        results, info = run(f"primal {m}x{n} (costs moved)", generals,
+                            SolverConfig(presolve=False), lane_kernels)
     counts = PATHS[f"fleet primal {m}x{n} (costs moved)"]
     if min(counts.values()) < info["iterations"]:
         raise AssertionError(f"[fleet] primal: {counts} launches in {info['iterations']} "
@@ -2223,6 +2338,7 @@ def phase_fleet(smi, launches, fleet_refs):
           f"{min(r.simplex.iterations for r in results)}-"
           f"{max(r.simplex.iterations for r in results)} after the base solve's "
           f"{info.get('base_iterations')}")
+    _fleet_options(smi, generals, calls[0], ref, run, lane_kernels)
 
     # 3. the first-order fleet on perturbed max flows
     generals, flows = _flow_fleet()
@@ -2254,6 +2370,165 @@ def phase_fleet(smi, launches, fleet_refs):
     for line in buf.getvalue().splitlines():
         print(f"[fleet] examples/torch_scenario_fleet.py --algorithm ipm: {line}")
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _planted_checks(A, ub, plants):
+    """The lane kernel's invariant check on states whose violation is known.
+    At step ``t`` each lane's state goes to ``_check_violation`` with the
+    structural basic value farthest below its upper bound moved up by
+    ``plants[t][lane]`` (the solve goes on from the true state), which puts
+    δ·max|A[:, j]| into the row residual and nothing into the bound
+    violation.  Yields the list of ``(t, value)`` pairs, ``value`` ``[L]``
+    (0 where no basic value had room for its plant)."""
+    import torch
+
+    from relp_tpu_torch.simplex import core
+
+    if A.dim() != 2:
+        raise AssertionError("the planted checks take an A shared by every lane")
+    check = core.LanePrimalKernel._check_violation
+    colmax = A.abs().amax(0)
+    n = A.shape[1]
+    planted = []
+
+    def planting(self, s, phase1):
+        delta = plants.get(self.steps)
+        if delta is not None:
+            j = s.basis.clamp(max=n - 1)
+            room = torch.where(s.basis < n, ub.gather(1, j) - s.xB, -torch.inf)
+            room, i = room.max(1)
+            delta = torch.where(room > 2 * delta, delta, 0.0)
+            xB = s.xB.clone()
+            xB.scatter_add_(1, i[:, None], delta[:, None])
+            planted.append((self.steps, delta * colmax[j.gather(1, i[:, None])[:, 0]]))
+            s = dataclasses.replace(s, xB=xB)
+        return check(self, s, phase1)
+
+    core.LanePrimalKernel._check_violation = planting
+    try:
+        yield planted
+    finally:
+        core.LanePrimalKernel._check_violation = check
+
+
+def _read_plants(tag, out, planted):
+    """Raise unless each lane's ``viol`` reads the largest plant of
+    :func:`_planted_checks` made while it was live (at a step below its
+    ``it``), within 1e-9 (the unplanted runs' bound on the noise), and no
+    plant made after its last step; every lane is planted at step 0 and, at
+    the second firing step, at least one live and one finished lane."""
+    import torch
+
+    its = out.it
+    want = torch.zeros_like(out.viol)
+    for t, value in planted:
+        want = torch.maximum(want, torch.where(its > t, value, 0.0))
+    (t0, first), (t1, second) = planted
+    err = float((out.viol - want).abs().max())
+    live, done = int(((its > t1) & (second > 0)).sum()), int(((its <= t1) & (second > 0)).sum())
+    if (t0 != 0 or not bool((first > 0).all()) or float(want.min()) < 1e-6 or err > 1e-9
+            or not live or not done):
+        raise AssertionError(f"[fleet] {tag}: planted checks read {out.viol.tolist()}, the plants "
+                             f"{want.tolist()} (worst {err:.3g}; step {t1}: {live} live lanes, "
+                             f"{done} finished)")
+    print(f"[fleet] {tag}: every lane's check reads the violation planted in it at step 0 "
+          f"((s + 1)·1e-6·max|A[:, j]|) and at step {t1} on the {live} lanes still live, not on "
+          f"the {done} finished ones (worst |viol − plant| {err:.3g})")
+
+
+def _fleet_options(smi, generals, default_call, ref, run, lane_kernels):
+    """The primal fleet under each primal option through
+    ``parallel.solve_batched``, warm from the default run's base basis, then
+    all four together through ``solve_general_forms_batched`` (which runs
+    its base solve under them): every lane against HiGHS, two lanes
+    against their single solves (:func:`_lanes_equal_singles`), the check's
+    values against violations planted in it (:func:`_planted_checks`), the
+    lane kernels' launches and the host reads per batched iteration beside
+    the default run's."""
+    import torch
+
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.ops.dense_kernels import dense_price_select_lanes
+    from relp_tpu_torch.parallel import solve_batched
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    args, kwargs, out0, wall0 = default_call
+    its0 = int(out0.it.max())
+    reads0 = out0.host_reads / its0
+    default_counts = PATHS[next(k for k in PATHS if k.startswith("fleet primal"))]
+    cfs = [build_computational_form(g, scale=True) for g in generals]
+
+    def report(tag, out, wall, peak, counts, config, call_args, call_kwargs, planted=None):
+        its = int(out.it.max())
+        x = out.x.cpu().numpy()
+        rel = max(abs(cfs[s].objective_of(x[s][:cfs[s].n]) - want) / abs(want)
+                  for s, want in ref.items())
+        if rel > OBJ_REL or sorted(ref) != list(range(FLEET_LANES)):
+            raise AssertionError(f"[fleet] {tag}: rel {rel:.2e} from HiGHS")
+        viol = out.viol.cpu().numpy()
+        if planted is not None:
+            _read_plants(tag, out, planted)
+        elif config.check_every_n and not ((viol >= 0.0) & (viol < 1e-9)).all():
+            raise AssertionError(f"[fleet] {tag}: a lane's invariant check found {viol.max()}")
+        if out.trace.shape != (FLEET_LANES, its if config.trace_iters else 0, 8):
+            raise AssertionError(f"[fleet] {tag}: trace of shape {tuple(out.trace.shape)}")
+        reads = out.host_reads / its
+        if reads > reads0:
+            raise AssertionError(f"[fleet] {tag}: {reads:.3f} host reads per batched iteration, "
+                                 f"the default run {reads0:.3f}")
+        per_it = " ".join(f"{k} {v / its:.3f}" for k, v in counts.items())
+        per_it0 = " ".join(f"{k} {v / its0:.3f}" for k, v in default_counts.items())
+        print(f"[fleet] {tag}: {FLEET_LANES} lanes warm from the base basis, all equal HiGHS "
+              f"(rel {rel:.2e}); lane loop wall {wall:.3f} s (default {wall0:.3f} s), batched "
+              f"iterations {its} ({its0}), host reads per batched iteration {reads:.3f} "
+              f"({reads0:.3f}), launches per batched iteration [{per_it}] ([{per_it0}]), "
+              f"peak_mem {peak / 2**20:.0f} MiB, max viol {float(out.viol.max()):.3g}, trace "
+              f"{tuple(out.trace.shape)} [{smi}]")
+        _lanes_equal_singles(tag, call_args, call_kwargs, out, config)
+
+    dev = out0.x.device
+    A, ub = (torch.as_tensor(args[k], dtype=torch.float64, device=dev) for k in (0, 4))
+    lane_ids = torch.arange(1, FLEET_LANES + 1, dtype=torch.float64, device=dev)
+    for tag, opts in FLEET_OPTIONS:
+        config = SolverConfig(presolve=False, **opts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dense_price_select_lanes.window_launches = 0
+        every = config.check_every_n
+        plant = (_planted_checks(A, ub, {0: lane_ids * 1e-6, every: lane_ids * 1e-5}) if every
+                 else contextlib.nullcontext())
+        with counted(lane_kernels, {}, f"fleet primal {tag}"), plant as planted:
+            t0 = time.perf_counter()
+            out = solve_batched(*args, cfg=config, max_iter=kwargs["max_iter"],
+                                warm=kwargs["warm"], device=out0.x.device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = PATHS[f"fleet primal {tag}"]
+        its = int(out.it.max())
+        if config.price_blocks > 1:
+            windowed = dense_price_select_lanes.window_launches
+            if windowed < 1 or counts["dense_price_select_lanes"] < its:
+                raise AssertionError(f"[fleet] {tag}: {windowed} windowed and "
+                                     f"{counts['dense_price_select_lanes']} select launches in "
+                                     f"{its} batched iterations")
+            print(f"[fleet] {tag}: {windowed} windowed dense_price_select_lanes launches "
+                  f"({windowed / its:.3f} per batched iteration)")
+        report(tag, out, wall, torch.cuda.max_memory_allocated(), counts, config, args, kwargs,
+               planted)
+
+    # all four together through the fleet driver, whose base solve runs under them
+    tag = "all four options"
+    config = SolverConfig(presolve=False, **{k: v for _, o in FLEET_OPTIONS for k, v in o.items()})
+    with _lane_calls() as calls:
+        results, info = run(f"primal {tag}", generals, config, lane_kernels, report=False)
+    (call_args, call_kwargs, out, wall), = calls
+    rel = max(abs(results[s].solution.objective_value - want) / abs(want)
+              for s, want in ref.items())
+    if rel > OBJ_REL:
+        raise AssertionError(f"[fleet] {tag}: driver's results rel {rel:.2e} from HiGHS")
+    report(tag, out, wall, torch.cuda.max_memory_allocated(), PATHS[f"fleet primal {tag}"],
+           config, call_args, call_kwargs)
 
 
 def _free_port():

@@ -189,11 +189,14 @@ class LaneDenseMatrix:
     def price(self, C, V, live=None, out=None):
         return dense_price_lanes(self.A, V, C, live=live, out=out)
 
-    def price_select(self, C, V, sel, live=None, outs=None):
-        return dense_price_select_lanes(self.A, V, C, *sel, live=live, outs=outs)
+    def price_select(self, C, V, sel, live=None, outs=None, j0: int = 0, w_cols=None):
+        return dense_price_select_lanes(self.A, V, C, *sel, j0, w_cols, live=live, outs=outs)
 
-    def price32_select(self, C32, V32, sel, live=None, outs=None):
-        return dense_price_select_lanes(self.A32, V32, C32, *sel, live=live, outs=outs)
+    def price32_select(self, C32, V32, sel, live=None, outs=None, j0: int = 0, w_cols=None):
+        """The lanes' entering columns of the window ``[j0, j0+w_cols)``
+        (default: all; ``C32`` then holds the window's costs), ``q``
+        counted from column 0 (partial pricing)."""
+        return dense_price_select_lanes(self.A32, V32, C32, *sel, j0, w_cols, live=live, outs=outs)
 
     def cols(self, q):
         """Column ``q[s]`` of lane ``s``, ``[L, m]``."""

@@ -31,7 +31,9 @@ group with none live returns at once); their outputs are left as they were
 
 A wrapper given CPU tensors computes the plain PyTorch version.  Given CUDA
 tensors it launches the kernel or raises: there is no fallback.  Each
-wrapper counts its launches in a plain integer attribute, ``launches``.
+wrapper counts its launches in a plain integer attribute, ``launches``;
+``dense_price_select_lanes`` also counts those on a window narrower than
+A (partial pricing) in ``window_launches``.
 """
 
 from __future__ import annotations
@@ -371,7 +373,10 @@ def dense_price_select_lanes(A: torch.Tensor, V: torch.Tensor, C: torch.Tensor,
     _launch("dense_price_select_lanes", A, V, C, j0, w_cols, None, sel, outs, L,
             _lane_args(A, V, C, None, sel, live))
     dense_price_select_lanes.launches += 1
+    if w_cols < A.shape[-1]:
+        dense_price_select_lanes.window_launches += 1
     return outs
 
 
 dense_price_select_lanes.launches = 0
+dense_price_select_lanes.window_launches = 0

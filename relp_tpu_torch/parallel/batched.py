@@ -5,12 +5,15 @@ two-phase solve (``solve_core(nested=True)``) over a leading scenario axis;
 here :func:`relp_tpu_torch.simplex.core.solve_core_lanes` runs the lanes
 together, each lane masked so that a finished one stops changing, against
 one shared dense ``A`` (a 2-D ``A``: one device copy serves every lane) or a
-stacked ``A[L, m, n]``.
+stacked ``A[L, m, n]``, under every primal option of the config (the eta
+inverse, partial pricing, the trace, the invariant check), as the JAX
+package's vmapped ``solve_core`` takes them.
 
 With a ``mesh`` (``parallel/mesh.py``) the scenarios go over 'batch': the
 lanes are cut into one group per 'batch' row, in order, and group ``i`` runs
 on row ``i``'s first device; the outputs come back in lane order on the first
-row's device.  The lane count must divide by the 'batch' size (the JAX
+row's device (the groups' traces padded with zero rows to the longest).
+The lane count must divide by the 'batch' size (the JAX
 package's ``device_put`` with ``P("batch")`` raises likewise).  Under a mesh
 that spans processes (``multihost.global_solver_mesh``) a process solves the
 groups of the rows it owns and returns their lanes; ``multihost.
@@ -71,8 +74,10 @@ def solve_batched(A, b, c, lb, ub, cfg: SolverConfig, max_iter: int, mesh=None,
     vstat0, art_sign0, phase0)`` (one row per scenario), as the JAX package
     takes them.  ``device=None`` takes a tensor ``A``'s device, else reads
     ``RELP_TPU_TORCH_DEVICE``; a ``mesh`` places the lane groups on its
-    'batch' rows instead.  Returns a ``SolveOutput`` whose fields carry a
-    leading lane axis."""
+    'batch' rows instead.  ``cfg`` is taken as it is, every primal option
+    included.  Returns a ``SolveOutput`` whose fields carry a leading lane
+    axis (``trace`` ``[L, T, 8]``, ``viol`` ``[L]``: see
+    :func:`~relp_tpu_torch.simplex.core.solve_core_lanes`)."""
     if mesh is not None:
         groups = lane_groups(b.shape[0], mesh)
         if not groups:
@@ -87,6 +92,10 @@ def solve_batched(A, b, c, lb, ub, cfg: SolverConfig, max_iter: int, mesh=None,
                               {k: part(v, lanes) for k, v in warm.items()},
                               device=mesh.devices[row][0])
                 for row, lanes in groups]
+        # a group that ran fewer steps gets zero trace rows up to the longest
+        T = max(o.trace.shape[1] for o in outs)
+        outs = [o._replace(trace=torch.nn.functional.pad(o.trace, (0, 0, 0, T - o.trace.shape[1])))
+                for o in outs]
         return gather_lanes(outs, mesh.devices[groups[0][0]][0])
     if device is None and torch.is_tensor(A):
         dev = A.device

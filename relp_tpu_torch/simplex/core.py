@@ -47,23 +47,29 @@ never materialized: artificial column ``i`` is ``art_sign[i]·e_i``.
 
 **Lanes.**  :func:`solve_core_lanes` solves L same-shape LPs at once, the
 JAX package's ``solve_core(nested=True)`` under ``jax.vmap``
-(``relp_tpu/parallel/batched.py``).  :class:`LanePrimalKernel` is
-:class:`PrimalKernel` with a leading lane axis on every field of the state
-(dense inverse, one shared or a stacked dense operator).  The pivot rules
-are written once, over a leading ``...`` axis (``PrimalKernel._advance``,
-``_restart``, ``_fresh``, ``watchdog``); the lane kernel adds the masks:
-its step merges each field of a lane that is not live from the state it
-was handed, so a lane that is done stops changing, as a lane whose vmapped
-``cond`` is false stops in JAX.
+(``relp_tpu/parallel/batched.py``), under every option of the config.
+:class:`LanePrimalKernel` is :class:`PrimalKernel` with a leading lane axis
+on every field of the state (either inverse, the eta block per lane; one
+shared or a stacked dense operator).  The pivot rules are written once,
+over a leading ``...`` axis (``PrimalKernel._advance``, ``_restart``,
+``_fresh``, ``watchdog``, ``_check_violation``); the lane kernel adds the
+masks: its step merges each field of a lane that is not live from the state
+it was handed, so a lane that is done stops changing, as a lane whose
+vmapped ``cond`` is false stops in JAX.  A live lane's ``it`` is the host's
+step count, so the partial-pricing block, the check's cadence and the trace
+row are the same for every live lane, as each lane's own counters make them
+in the JAX package.
 The pricing passes skip finished lanes inside the kernel
 (``dense_price_select_lanes``, ``dense_price_lanes`` with a live mask), and
 the f64 re-pricing of mixed pricing runs only on the lanes whose f32
-candidate failed its confirmation, without a read.  Refactorization stays
-with the host: every lane that has one pending is refactorized (only
-those), then all step again.  The host reads one stacked tensor of the
-lanes' flags per step, never one per lane; a refactorization adds one or
-two stacked reads, a repair one.  The single solve takes no mask, so its
-launches per iteration do not pay for them.
+candidate failed its confirmation, without a read (under partial pricing
+the block's scan comes first, and only the lanes it leaves unconfirmed
+scan every column).  Refactorization and the eta fold stay with the host:
+every lane that has one pending is refactorized (only those), every other
+lane with a full eta block folds it, then all step again.  The host reads
+one stacked tensor of the lanes' flags per step, never one per lane; a
+refactorization adds one or two stacked reads, a repair one.  The single
+solve takes no mask, so its launches per iteration do not pay for them.
 """
 
 from __future__ import annotations
@@ -169,6 +175,17 @@ def _col(v):
     return v.unsqueeze(-1)
 
 
+def _rows(M, i):
+    """``M[..., i, :]``: the rows ``i`` ``[..., k]`` of ``M`` ``[..., m, c]``
+    at each leading index (one LP: ``M[i]``)."""
+    return M.gather(-2, i.unsqueeze(-1).expand(i.shape + (M.shape[-1],)))
+
+
+def _row(M, r):
+    """``M[..., r, :]`` for one row ``r`` ``[...]`` at each leading index."""
+    return _rows(M, r.unsqueeze(-1)).squeeze(-2)
+
+
 def _mv(M, v):
     """``M @ v`` of one matrix, or of each of a stack ``[L, m, m]``."""
     return M @ v if M.dim() == 2 else torch.bmm(M, v.unsqueeze(-1)).squeeze(-1)
@@ -198,7 +215,8 @@ class PrimalKernel:
         self.max_iter = max_iter
         self.m, self.n = A.shape
         self.dev = A.device
-        zeros_m = torch.zeros(lb.shape[:-1] + (self.m,), dtype=F64, device=self.dev)
+        self.lead = lb.shape[:-1]  # () for one LP, (L,) for lanes
+        zeros_m = torch.zeros(self.lead + (self.m,), dtype=F64, device=self.dev)
         self.lb_tot = torch.cat([lb, zeros_m], -1)
         self.ub_tot_p2 = torch.cat([ub, zeros_m], -1)  # artificials pinned to 0 in phase 2
         self.can_enter = lb < ub                        # fixed + padded columns never enter
@@ -213,12 +231,12 @@ class PrimalKernel:
         self.fused_select = hasattr(A, "price_select")
         self.steps = 0
         self.host_reads = 0
-        self.viol = torch.zeros((), dtype=F64, device=self.dev)
+        self.viol = torch.zeros(self.lead, dtype=F64, device=self.dev)
         # trace rows land in buffers of trace_capacity rows, a new buffer
         # once one is full, so a solve of any length keeps every row
         self.trace_cap = cfg.trace_capacity if cfg.trace_iters else 0
         self._trace_full: list[torch.Tensor] = []
-        self._trace_buf = torch.zeros((self.trace_cap, 8), dtype=F32, device=self.dev)
+        self._trace_buf = torch.zeros(self.lead + (self.trace_cap, 8), dtype=F32, device=self.dev)
 
     def _read(self, t: torch.Tensor):
         """Bring a small tensor to the host (one synchronisation)."""
@@ -235,15 +253,17 @@ class PrimalKernel:
     def art_mass(self, s: State):
         return torch.where(s.basis >= self.n, s.xB.abs(), 0.0).sum(-1)
 
-    def eta0(self) -> dict:
-        """An empty pending eta block (nothing for the dense inverse)."""
+    def eta0(self, lead=None) -> dict:
+        """An empty pending eta block (nothing for the dense inverse), of
+        every LP or of ``lead`` (a shape: ``(k,)`` for k lanes)."""
         if not self.use_eta:
             return {}
         T = self.cfg.eta_block
+        lead = self.lead if lead is None else lead
         return dict(
-            etaZ=torch.zeros((self.m, T), dtype=F64, device=self.dev),
-            etaR=torch.zeros(T, dtype=I64, device=self.dev),
-            eta_count=torch.zeros((), dtype=I64, device=self.dev),
+            etaZ=torch.zeros(lead + (self.m, T), dtype=F64, device=self.dev),
+            etaR=torch.zeros(lead + (T,), dtype=I64, device=self.dev),
+            eta_count=torch.zeros(lead, dtype=I64, device=self.dev),
         )
 
     def basis_matrix(self, basis, art_sign, lanes=None):
@@ -260,11 +280,11 @@ class PrimalKernel:
         return torch.where(is_art[..., None, :], art_cols, struct_cols)
 
     def trace(self) -> torch.Tensor:
-        """The recorded trace rows, f32[steps, 8]."""
+        """The recorded trace rows, f32[..., steps, 8]."""
         if not self.trace_cap:
-            return torch.zeros((0, 8), dtype=F32, device=self.dev)
+            return torch.zeros(self.lead + (0, 8), dtype=F32, device=self.dev)
         tail = self.steps - self.trace_cap * len(self._trace_full)
-        return torch.cat(self._trace_full + [self._trace_buf[:tail]])
+        return torch.cat(self._trace_full + [self._trace_buf[..., :tail, :]], -2)
 
     # ---- basis repair: warm phase-1 restart from the artificial basis ----
     def _restart(self, vstat, repairs, status, lanes=None) -> dict:
@@ -378,7 +398,7 @@ class PrimalKernel:
         running = (s.status == st.RUNNING) & (s.it < self.max_iter)
         binv_mag = s.Binv.abs().amax((-2, -1))
         if self.use_eta:
-            binv_mag = torch.maximum(binv_mag, s.etaZ.abs().max())
+            binv_mag = torch.maximum(binv_mag, s.etaZ.abs().amax((-2, -1)))
         state_sum = s.xB.sum(-1) + s.pi.sum(-1)
         broken = (
             ~torch.isfinite(state_sum)
@@ -478,23 +498,24 @@ class PrimalKernel:
         return price_f64()
 
     def _check_violation(self, s: State, phase1):
-        """Worst BFS-invariant violation of ``s``: the row residual of the
-        current point and the basic-bound violation (JAX core.py:653-681)."""
+        """Worst BFS-invariant violation of ``s`` (of each lane): the row
+        residual of the current point and the basic-bound violation (JAX
+        core.py:653-681)."""
         n, m = self.n, self.m
         lb_tot, ub_tot = self.lb_tot, self.ub_tot_p2
         nbv = _nonbasic_values(s.vstat, lb_tot, ub_tot)
         nbv = torch.where(s.vstat == st.BASIC, 0.0, nbv)
-        xx = torch.zeros(n + 1, dtype=F64, device=self.dev)
-        xx[:n] = nbv[:n]
+        xx = torch.zeros(self.lead + (n + 1,), dtype=F64, device=self.dev)
+        xx[..., :n] = nbv[..., :n]
         structural = s.basis < n
-        xx[torch.where(structural, s.basis, n)] = torch.where(structural, s.xB, 0.0)
+        xx.scatter_(-1, torch.where(structural, s.basis, n), torch.where(structural, s.xB, 0.0))
         kk = (s.basis - n).clamp(0, m - 1)
-        artc = torch.zeros(m, dtype=F64, device=self.dev).index_add_(
-            0, kk, torch.where(~structural, s.art_sign[kk] * s.xB, 0.0))
-        row_res = (self.A.matvec(xx[:n]) + artc - self.b).abs().max()
-        lbv = lb_tot[s.basis]
-        ubv = torch.where(~structural & phase1, INF, ub_tot[s.basis])
-        bviol = torch.maximum(torch.maximum(lbv - s.xB, s.xB - ubv), torch.zeros_like(lbv)).max()
+        artc = torch.zeros(self.lead + (m,), dtype=F64, device=self.dev).scatter_add_(
+            -1, kk, torch.where(~structural, s.art_sign.gather(-1, kk) * s.xB, 0.0))
+        row_res = (self._matvec(xx[..., :n]) + artc - self.b).abs().amax(-1)
+        lbv = lb_tot.gather(-1, s.basis)
+        ubv = torch.where(~structural & _col(phase1), INF, ub_tot.gather(-1, s.basis))
+        bviol = torch.maximum(torch.maximum(lbv - s.xB, s.xB - ubv), torch.zeros_like(lbv)).amax(-1)
         return torch.maximum(row_res, bviol)
 
     def _advance(self, s: State, live=None):
@@ -530,7 +551,7 @@ class PrimalKernel:
         u = A.ftran(s.Binv, q)  # B⁻¹ a_q
         if use_eta:
             # current inverse = (I + Z·Pᵀ)·Binv → u += Z·u[etaR]
-            u = u + s.etaZ @ u.index_select(0, s.etaR)
+            u = u + _mv(s.etaZ, u.gather(-1, s.etaR))
         ut = _col(t) * u
 
         k = s.basis
@@ -580,11 +601,10 @@ class PrimalKernel:
         xB_piv = _place_(xB_moved.clone(), r, start_val + t * theta_safe)
         p = _take(u, r)
         p_safe = torch.where(p.abs() > 0, p, 1.0)
-        cur_row_r = s.Binv.gather(-2, r[..., None, None].expand(r.shape + (1, m))).squeeze(-2)
+        cur_row_r = _row(s.Binv, r)
         if use_eta:
             # row r of the CURRENT inverse (Binv + pending etas)
-            cur_row_r = cur_row_r + s.etaZ.index_select(0, r.reshape(1))[0] @ \
-                s.Binv.index_select(0, s.etaR)
+            cur_row_r = cur_row_r + _vm(_row(s.etaZ, r), _rows(s.Binv, s.etaR))
         w_row = cur_row_r / _col(p_safe)
 
         kr = _take(k, r)
@@ -628,14 +648,16 @@ class PrimalKernel:
         if use_eta:
             # push the new eta z = (e_r − u)/p in composed form:
             #   E_new·(I + Z·Pᵀ) = I + (Z + z⊗Z[r,:])·Pᵀ + z·e_rᵀ
-            z = -u / p_safe
-            z = _put(z, r, _at(z, r) + 1.0 / p_safe)
-            Zc = s.etaZ + z[:, None] * s.etaZ.index_select(0, r.reshape(1))
-            Zc = Zc.index_copy(1, s.eta_count.reshape(1), z[:, None])
+            z = -u / _col(p_safe)
+            z = _place_(z, r, _take(z, r) + 1.0 / p_safe)
+            Zc = s.etaZ + z.unsqueeze(-1) * _row(s.etaZ, r).unsqueeze(-2)
+            # column eta_count (< eta_block: a full block is folded before a step)
+            j = s.eta_count
+            Zc = Zc.scatter(-1, j[..., None, None].expand(z.shape + (1,)), z.unsqueeze(-1))
             eta = dict(
-                etaZ=torch.where(is_pivot, Zc, s.etaZ),
-                etaR=torch.where(is_pivot, s.etaR.index_copy(
-                    0, s.eta_count.reshape(1), r.reshape(1)), s.etaR),
+                etaZ=torch.where(is_pivot[..., None, None], Zc, s.etaZ),
+                etaR=torch.where(_col(is_pivot),
+                                 s.etaR.scatter(-1, j.unsqueeze(-1), r.unsqueeze(-1)), s.etaR),
                 eta_count=s.eta_count + is_pivot.long(),
             )
         else:
@@ -686,21 +708,26 @@ class PrimalKernel:
         status_new = torch.where(needs_repair, status, status_new)
 
         # ---- periodic in-loop invariant check (cfg.check_every_n) ----
+        # (a live lane's ``it`` is the host's ``steps``: the lanes check together)
         if cfg.check_every_n and self.steps % cfg.check_every_n == 0:
-            self.viol = torch.maximum(self.viol, self._check_violation(s, phase1))
+            viol = torch.maximum(self.viol, self._check_violation(s, phase1))
+            self.viol = viol if live is None else torch.where(live, viol, self.viol)
 
         # ---- per-iteration metric row (cfg.trace_iters), on the device ----
+        # row ``steps`` of every live lane; a lane that is not live gets zeros
         if self.trace_cap:
-            cBxB = torch.where(s.basis >= n, 0.0, c[s.basis.clamp(0, n - 1)]) @ s.xB
+            cB = torch.where(s.basis >= n, 0.0, c.gather(-1, s.basis.clamp(0, n - 1)))
+            cBxB = cB @ s.xB if live is None else (cB * s.xB).sum(-1)
             events = (is_pivot.float() + 2.0 * is_flip.float()
                       + 4.0 * (since_refactor == 0).float() + 8.0 * s.bland.float())
             row = torch.stack([v.to(F32) for v in (
-                phase, cBxB, art_mass, d_q, theta_safe, events, q, r)])
+                phase, cBxB, art_mass, d_q, theta_safe, events, q, r)], -1)
             slot = self.steps % self.trace_cap
             if slot == 0 and self.steps:
                 self._trace_full.append(self._trace_buf)
                 self._trace_buf = torch.zeros_like(self._trace_buf)
-            self._trace_buf[slot] = row
+            self._trace_buf[..., slot, :] = row if live is None else torch.where(
+                _col(live), row, 0.0)
 
         self.steps += 1
         return dict(
@@ -895,19 +922,18 @@ def _merge(s: State, idx: torch.Tensor, sub: dict) -> State:
 
 
 class LanePrimalKernel(PrimalKernel):
-    """:class:`PrimalKernel` over L lanes of one shape: a dense inverse per
-    lane (``Binv`` ``[L, m, m]``, updated in place), one
+    """:class:`PrimalKernel` over L lanes of one shape: an inverse per lane
+    (``Binv`` ``[L, m, m]``, updated in place; under ``inverse="eta"`` a
+    pending eta block per lane, ``etaZ`` ``[L, m, T]``), one
     :class:`LaneDenseMatrix` (f32 shadow attached when the config prices in
     f32), and per-lane ``b``, ``c``, ``lb``, ``ub``.  The pivot rules are
     :class:`PrimalKernel`'s; here are the masks and the host's choices:
-    :meth:`step` takes the mask of live lanes, :meth:`refactor` and
-    :meth:`repair` the lanes that need them."""
+    :meth:`step` takes the mask of live lanes, :meth:`refactor`,
+    :meth:`fold_etas` and :meth:`repair` the lanes that need them.  The
+    trace (``[L, steps, 8]``) and the check's ``viol`` (``[L]``) have a row
+    per lane."""
 
     def __init__(self, A: LaneDenseMatrix, b, c, lb, ub, cfg: SolverConfig, max_iter: int):
-        if cfg.inverse != "dense" or cfg.price_blocks > 1 or cfg.trace_iters or cfg.check_every_n:
-            raise NotImplementedError(
-                "lane-batched primal: inverse='eta', price_blocks > 1, trace_iters and "
-                "check_every_n are not ported for fleets (ROADMAP.md queue 1)")
         super().__init__(A, b, c, lb, ub, cfg, max_iter)
         self.L = b.shape[0]
         self.all_lanes = torch.arange(self.L, device=self.dev)
@@ -919,7 +945,15 @@ class LanePrimalKernel(PrimalKernel):
 
     def repair(self, s: State, idx: torch.Tensor) -> State:
         """:meth:`PrimalKernel.repair` of lanes ``idx``."""
-        return _merge(s, idx, self._restart(s.vstat[idx], s.repairs[idx], s.status[idx], idx))
+        return _merge(s, idx, {**self._restart(s.vstat[idx], s.repairs[idx], s.status[idx], idx),
+                               **self.eta0(idx.shape)})
+
+    def fold_etas(self, s: State, idx: torch.Tensor) -> State:
+        """:meth:`PrimalKernel.fold_etas` of lanes ``idx``: B⁻¹ ← B⁻¹ +
+        etaZ·B⁻¹[etaR] of each, and empty blocks."""
+        Binv = s.Binv[idx]
+        Binv.baddbmm_(s.etaZ[idx], _rows(Binv, s.etaR[idx]))
+        return _merge(s, idx, dict(Binv=Binv, **self.eta0(idx.shape)))
 
     def refactor(self, s: State, idx: torch.Tensor) -> State:
         """:meth:`PrimalKernel.refactor` of lanes ``idx``: the polish (or
@@ -933,6 +967,8 @@ class LanePrimalKernel(PrimalKernel):
         lu = idx
         if cfg.refactor_mode == "polish":
             X = s.Binv[idx]
+            if self.use_eta:  # each lane's pending etas folded in
+                X = X + torch.bmm(s.etaZ[idx], _rows(X, s.etaR[idx]))
             eye = torch.eye(m, dtype=F64, device=self.dev)
             Binv = X @ (2.0 * eye - B @ X)
             resid = inverse_residual(B, Binv)
@@ -948,7 +984,8 @@ class LanePrimalKernel(PrimalKernel):
             # NaN-safe: a NaN pivot must route to repair (NaN >= tol is False)
             rows = range(len(piv_ok)) if pos is None else pos.tolist()
             bad = [j for j, ok in zip(rows, piv_ok) if not ok]
-        s = _merge(s, idx, self._fresh(Binv, basis, s.vstat[idx], s.phase[idx], s.w[idx], idx))
+        s = _merge(s, idx, {**self._fresh(Binv, basis, s.vstat[idx], s.phase[idx], s.w[idx], idx),
+                            **self.eta0(idx.shape)})
         if bad:
             s = self.repair(s, idx[torch.tensor(bad, dtype=I64, device=self.dev)])
         return s
@@ -956,13 +993,28 @@ class LanePrimalKernel(PrimalKernel):
     def _price(self, s: State, c_eff, vs, live):
         """Every live lane's entering column ``(q, has, d_q)``: the f32 scan
         with its f64 confirmation and the f64 pass on the lanes whose
-        candidate failed it (mixed pricing), or the f64 pass."""
+        candidate failed it (mixed pricing), or the f64 pass.  Under
+        partial pricing the f32 scan of this step's block comes first, and
+        only the lanes it leaves unconfirmed go on to the full scan."""
         A, cfg = self.A, self.cfg
         sel = Selection(s.vstat, self.can_enter, s.w, s.bland, cfg.eps_dual,
                         cfg.pricing == "devex")
         if not cfg.mixed_pricing:
             return A.price_select(c_eff, s.pi, sel, live, self._outs[F64])
-        q32, has32, _ = A.price32_select(c_eff.float(), s.pi.float(), sel, live, self._outs[F32])
+        pi32 = s.pi.float()
+        outs32 = self._outs[F32]
+        if self.use_blocks:
+            # a live lane's ``it`` is the host's ``steps``: one block for all
+            bsize = self.n // cfg.price_blocks
+            j0 = (self.steps % cfg.price_blocks) * bsize
+            qb, has_b, d_b = A.price32_select(c_eff[:, j0:j0 + bsize].float().contiguous(), pi32,
+                                              sel, live, outs32, j0, bsize)
+            _, confirmed_b = self._confirm64(c_eff, s.pi, vs, qb, has_b)
+            # the lanes confirmed in the block keep its candidate through
+            # the full scan (which skips them) and its confirmation
+            live = live & ~confirmed_b
+            outs32 = (qb.clone(), has_b.clone(), d_b.clone())
+        q32, has32, _ = A.price32_select(c_eff.float(), pi32, sel, live, outs32)
         d_q64, confirmed = self._confirm64(c_eff, s.pi, vs, q32, has32)
         # the lanes whose f32 candidate stands keep it; the f64 pass writes
         # the others' (q, has, d_q) over it
@@ -977,7 +1029,7 @@ class LanePrimalKernel(PrimalKernel):
         place, live pivoting lanes only."""
         new, needs_repair = self._advance(s, live)
         new["broken"] = s.broken
-        out = {name: torch.where(live if v.dim() == 1 else _col(live), v, getattr(keep, name))
+        out = {name: torch.where(live.view((-1,) + (1,) * (v.dim() - 1)), v, getattr(keep, name))
                for name, v in new.items()}
         return dataclasses.replace(s, **out), needs_repair & live
 
@@ -994,9 +1046,12 @@ def solve_core_lanes(
     :func:`solve_core`.  Warm start per lane: ``basis0`` ``[L, m]``,
     ``vstat0`` ``[L, n]``, optionally ``art_sign0`` ``[L, m]`` and ``phase0``
     (``[L]`` or one int).  Every lane takes the steps its own
-    :func:`solve_core` call would take.  Returns a :class:`SolveOutput`
-    whose fields carry a leading lane axis (``trace`` has no rows,
-    ``host_reads`` counts the stacked reads of the whole batch)."""
+    :func:`solve_core` call would take, under every primal option of
+    ``cfg``.  Returns a :class:`SolveOutput` whose fields carry a leading
+    lane axis; ``host_reads`` counts the stacked reads of the whole batch;
+    ``trace`` is ``[L, T, 8]`` with T the largest lane's ``it`` (every row
+    kept, whatever ``trace_capacity``; zero rows past a lane's own ``it``)
+    and ``viol`` ``[L]``."""
     A = A if isinstance(A, LaneDenseMatrix) else LaneDenseMatrix(torch.as_tensor(A))
     L = b.shape[0]
     m, n = A.shape
@@ -1012,6 +1067,7 @@ def solve_core_lanes(
         status=lanes_of(st.RUNNING), it=lanes_of(0), degen_count=lanes_of(0),
         bland=lanes_of(cfg.pricing == "bland", torch.bool), repairs=lanes_of(0),
         w=torch.ones((L, n), dtype=F64, device=dev), broken=lanes_of(False, torch.bool),
+        **K.eta0(),
     )
     if basis0 is None:
         # ---- cold start: all-artificial basis in every lane ----
@@ -1050,14 +1106,19 @@ def solve_core_lanes(
         hit = [i for i, bit in enumerate(bits) if bit]
         return torch.tensor(hit, dtype=I64, device=dev) if hit else None
 
-    # ---- the host loop: one stacked read of every lane's flags per step ----
+    # ---- the host loop: one stacked read of every lane's flags per step
+    # (running, refactor due[, fold due]) ----
     final = s
     s, flags = K.watchdog(final)
     host = K._read(flags)
-    while any(run for run, _ in host):
-        due = lanes_of_true([run and ref for run, ref in host])
+    while any(row[0] for row in host):
+        due = lanes_of_true([row[0] and row[1] for row in host])
         if due is not None:
             s = K.refactor(s, due)
+        if K.use_eta:  # within a lane, a refactorization takes its etas
+            fold = lanes_of_true([row[0] and not row[1] and row[2] for row in host])
+            if fold is not None:
+                s = K.fold_etas(s, fold)
         final, needs_repair = K.step(s, flags[:, 0].contiguous(), final)
         s, flags = K.watchdog(final)
         host = K._read(torch.cat([needs_repair[:, None], flags], 1))
@@ -1092,7 +1153,5 @@ def solve_core_lanes(
         x=x, status=s.status, it=s.it, phase=s.phase, basis=s.basis, vstat=s.vstat,
         art_inf=K.art_mass(dataclasses.replace(s, xB=xB)),
         pi=torch.bmm(cB.unsqueeze(1), s.Binv).squeeze(1), obj=(c * x).sum(1),
-        art_sign=s.art_sign, host_reads=K.host_reads,
-        trace=torch.zeros((L, 0, 8), dtype=F32, device=dev),
-        viol=torch.zeros(L, dtype=F64, device=dev),
+        art_sign=s.art_sign, host_reads=K.host_reads, trace=K.trace(), viol=K.viol,
     )

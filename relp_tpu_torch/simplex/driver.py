@@ -1821,10 +1821,12 @@ def solve_general_forms_batched(generals, config: SolverConfig = DEFAULT_CONFIG,
     - ``"pdlp"``, and ``"ipm"`` without a shared A: the first-order fleet
       (:func:`_solve_fleet_pdlp`);
     - ``"primal"`` and ``"dual"``: the lane-batched primal
-      (:func:`relp_tpu_torch.parallel.solve_batched`), every lane warm from
+      (:func:`relp_tpu_torch.parallel.solve_batched`) under ``config`` as it
+      is, every primal option included, every lane warm from
       one base solve of the first LP when the A is shared and
       ``pdlp_fleet_warm`` is on, else from the slack crash under
-      ``crash_basis``, else cold.
+      ``crash_basis``, else cold.  Its results carry what the JAX driver's
+      carry: no trace and no check value.
 
     Duals come back unscaled and sign-flipped into original row units, as
     the single solve's.  ``device=None`` reads ``RELP_TPU_TORCH_DEVICE``;

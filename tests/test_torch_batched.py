@@ -148,10 +148,10 @@ def test_a_lane_that_finishes_early_stops_changing():
         torch.testing.assert_close(one.x, out.x[s], rtol=1e-12, atol=1e-12)
 
 
-def test_solve_batched_refuses_a_mesh():
-    """A mesh is no longer refused: the lanes of a shared A solve over the
-    'batch' rows of a mesh (three rows of one lane each) as they solve
-    unmeshed, and a lane count that does not divide over 'batch' raises."""
+def test_solve_batched_over_a_mesh():
+    """The lanes of a shared A solve over the 'batch' rows of a mesh (three
+    rows of one lane each) as they solve unmeshed, and a lane count that
+    does not divide over 'batch' raises."""
     from relp_tpu_torch.parallel import make_solver_mesh
 
     arrays = _stack(8, 32, 3, True)

@@ -5,7 +5,7 @@
                                                     fleet-primal|fleet-pdlp|fleet-ipm]
                                          [--nodes 4096] [--iters 600] [--out FILE]
                                          [--crossover] [--pdlp-matrix auto|bricks]
-                                         [--mesh-cols K]
+                                         [--mesh-cols K] [--lane-options NAME,...]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
 LP of ``--nodes`` nodes on the ELL operator, or the dense LP at 768 × 1536 on
@@ -57,7 +57,11 @@ otherwise: wall, batched iterations, kernel time, launches and host reads
 per batched iteration, the busy share of the profiled wall, the heaviest
 kernels and the lane kernels' share.  ``--iters`` caps the first-order
 fleet's PDHG iterations (whole calls of 8 rounds of 256; the lanes left
-go to HiGHS, which the parts show).
+go to HiGHS, which the parts show).  ``--lane-options`` profiles the primal
+fleet once per named config, in one process: ``default``, ``eta``
+(``inverse="eta"``), ``blocks`` (``price_blocks=2``), ``trace``
+(``trace_iters``), ``check`` (``check_every_n=50``) and ``all`` (the four
+together), each through the driver, whose base solve runs under it.
 """
 
 from __future__ import annotations
@@ -383,8 +387,24 @@ FLEET_PARTS = {
 }
 
 
+LANE_OPTIONS = {"default": {}, "eta": dict(inverse="eta"), "blocks": dict(price_blocks=2),
+                "trace": dict(trace_iters=True), "check": dict(check_every_n=50),
+                "all": dict(inverse="eta", price_blocks=2, trace_iters=True, check_every_n=50)}
+
+
 def profile_fleet(args, smi) -> list[str]:
-    """One of chip_smoke.py's fleets through solve_general_forms_batched."""
+    """One of chip_smoke.py's fleets through solve_general_forms_batched
+    (the primal fleet once per ``--lane-options`` config)."""
+    names = args.lane_options.split(",") if args.lane_options else ["default"]
+    if args.problem != "fleet-primal" and names != ["default"]:
+        raise SystemExit("--lane-options takes --problem fleet-primal")
+    lines = []
+    for name in names:
+        lines += _profile_fleet(args, smi, name, LANE_OPTIONS[name])
+    return lines
+
+
+def _profile_fleet(args, smi, option_name, options) -> list[str]:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -397,11 +417,14 @@ def profile_fleet(args, smi) -> list[str]:
     from relp_tpu_torch.utils.config import SolverConfig
 
     modules = {"driver": driver, "batched": batched, "pdhg": pdhg, "primal_dual": primal_dual}
+    lanes, select = dense_kernels.dense_price_lanes, dense_kernels.dense_price_select_lanes
+    lanes.launches = select.launches = select.window_launches = 0
     kind = args.problem.split("-", 1)[1]
     if kind == "primal":
         m, n = cs.FLEET_PRIMAL_SHAPE
         make = lambda: cs._fleet_generals(m, n, cs.FLEET_LANES, demand=False)  # noqa: E731
-        name, config = f"{m}x{n} (costs moved)", SolverConfig(presolve=False)
+        name = f"{m}x{n} (costs moved), {option_name} config"
+        config = SolverConfig(presolve=False, **options)
     elif kind == "pdlp":
         cs.FLEET_FLOW_NODES = min(args.nodes, cs.FLEET_FLOW_NODES)
         make, name = (lambda: cs._flow_fleet()[0]), f"max-flow N={cs.FLEET_FLOW_NODES}"
@@ -490,9 +513,8 @@ def profile_fleet(args, smi) -> list[str]:
         f"{launches / its:.1f}/iter; dense_price_kernel and dense_price_group_kernel (the lane "
         "kernels) "
         f"{lane_us / its:.1f} us/iter, {lane_us / max(busy_us, 1e-9):.3f} of kernel time; "
-        f"dense_price_lanes {dense_kernels.dense_price_lanes.launches}, "
-        f"dense_price_select_lanes {dense_kernels.dense_price_select_lanes.launches} launches "
-        "over the four runs",
+        f"dense_price_lanes {lanes.launches}, dense_price_select_lanes {select.launches} "
+        f"({select.window_launches} on a partial-pricing window) launches over the four runs",
     ]
     for a in sorted(kernels, key=lambda a: getattr(a, attr), reverse=True)[:8]:
         lines.append(f"[profile]   kernel {getattr(a, attr) / its:9.2f} us/iter "
@@ -516,6 +538,9 @@ def main(argv=None) -> int:
                     help="with --problem ipm: time the crossover too (f64 ladder only)")
     ap.add_argument("--mesh-cols", type=int, default=1,
                     help="with --problem maxflow|dense: shards of the column pool, all on cuda:0")
+    ap.add_argument("--lane-options", default="",
+                    help="with --problem fleet-primal: configs to profile in turn, comma-separated "
+                         f"({', '.join(LANE_OPTIONS)})")
     ap.add_argument("--count-ops", action="store_true",
                     help="with --problem dual: count tensor operations on the CPU instead")
     args = ap.parse_args(argv)
