@@ -192,13 +192,27 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              a 2-scenario fleet's objectives and is destroyed.  The walls stand
              beside the single solve's: two shards on one card measure the
              sharding's overhead, not a speed-up.
-16. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file, and
+16. xl     — the XL gate (``SolverConfig.refactor_external_m``): a default-config
+             (``algorithm="primal"``) solve above it goes to the host sparse-LU
+             dual.  The 4,096-node max flow through ``api.solve(path)`` under
+             ``refactor_external_m=2048`` and a block-diagonal LP of 1,600 boxed
+             8 × 32 blocks (tests/test_parallel.py's recipe from seeds 1000 + k;
+             12,800 rows, 51,200 columns) under the default config: each with
+             ``engine == "dual-lu"``, no kernel launched and the peak of device
+             memory less than 64 MiB above the start (no device operator, no
+             B⁻¹: the primal's alone is 128 MiB at N = 4,096); the max flow's
+             objective equal to scipy's and its iterations to those of
+             ``algorithm="dual", xl_engine="lu"``, the blocks' objective to the
+             sum of HiGHS's block optima within 1e-9 relative (both references
+             computed meanwhile by another process on the host's CPU).
+17. cli    — ``relp_tpu_torch.cli.main(["-q", file])`` on a small MPS file, and
              with ``--algorithm pdlp --pdlp-matrix bricks`` (both brick kernels
              launched).
 
 Launch counts: every kernel's count is set to 0 just before each path that
 runs it (probe, slice, dense, pdlp, bricks, the primal and first-order fleets,
-the mesh phase's paths) and read just after; launches made to
+the mesh phase's paths) and read just after (``xl`` requires that its paths
+launch none); launches made to
 compare a kernel with its plain version do not count.  (``dual`` is the
 N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
 ``launches`` is the count of the path whose shape and mode the kernel's
@@ -256,6 +270,11 @@ CUT_DEMAND = (97.0, 610.0, 395.0, 211.0)
 POOL_SHAPE = (64, 10_000)   # tests/test_lazy_pool_10k.py's masked pool
 POOL_BATCH = 32         # inactive columns activated per column-generation round
 IPM_NODES = 4096        # the interior point's largest max flow (dense operator, 1 GiB)
+XL_GATE = 2048          # [xl]: refactor_external_m below the slice's m_pad (4,096)
+XL_BLOCKS = 1600        # [xl]: block-diagonal LP of 1,600 boxed 8 × 32 blocks, m_pad 12,800
+XL_BLOCK_SHAPE = (8, 32)
+XL_BLOCK_SEED = 1000    # block k from seed 1000 + k
+XL_PEAK_MIB = 64        # [xl]: the host LU route builds no device operator and no B⁻¹
 FLEET_SEED = 20260819   # bench.py's fleet suite: its perturbations' seed
 FLEET_LANES = 64        # bench.py's DENSE fleet: 64 scenarios
 FLEET_PRIMAL_SHAPE = (256, 512)
@@ -2764,6 +2783,136 @@ def phase_mesh(smi, highs_small):
           f"{objs} == closed form (-6, -10); destroyed")
 
 
+def xl_block(k):
+    """Block k of the [xl] LP: tests/test_parallel.py's boxed LP (30 % fill,
+    one unit entry per row, ``b = A·U(0, 1)``, ``0 ≤ x ≤ 10``) from seed
+    ``XL_BLOCK_SEED + k``."""
+    import numpy as np
+
+    m, n = XL_BLOCK_SHAPE
+    rng = np.random.default_rng(XL_BLOCK_SEED + k)
+    A = np.where(rng.random((m, n)) < 0.3, rng.standard_normal((m, n)), 0.0)
+    A[np.arange(m), rng.integers(0, n, m)] = 1.0
+    b = A @ rng.random(n)
+    c = rng.standard_normal(n)
+    return A, b, c
+
+
+def xl_blocks_lp(blocks=XL_BLOCKS):
+    """The block-diagonal stack of ``blocks`` independent boxed LPs
+    (``xl_block``) as one GeneralForm: a sparse LP above the default XL gate
+    whose optimum is the sum of the blocks' optima."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from relp_tpu_torch.model.elements import Objective, RangedConstraintRelation
+    from relp_tpu_torch.model.general_form import GeneralForm, Variable
+
+    parts = [xl_block(k) for k in range(blocks)]
+    A = sp.block_diag([sp.csc_matrix(a) for a, _, _ in parts], format="csc")
+    b = np.concatenate([b_k for _, b_k, _ in parts])
+    c = np.concatenate([c_k for _, _, c_k in parts])
+    return GeneralForm(
+        objective=Objective.MINIMIZE, A=A,
+        constraint_types=[RangedConstraintRelation.equal()] * A.shape[0], b=b,
+        variables=[Variable(f"x{j}", cost=float(c[j]), lower=0.0, upper=10.0)
+                   for j in range(A.shape[1])],
+        name=f"xl_blocks_{blocks}")
+
+
+def _xl_references(n_nodes, blocks):
+    """[xl]'s references, in a second process: the iterations and objective of
+    the slice's max flow under ``algorithm="dual", xl_engine="lu"`` (the host
+    LU dual, asked for on the host's CPU), and the sum of the blocks' optima
+    by HiGHS."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linprog
+
+    from relp_tpu_torch.simplex.driver import solve_general_form
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    torch.set_num_threads(1)  # the host LU's work is scipy's and the native library's
+    res = solve_general_form(slice_problem(n_nodes)[0],
+                             SolverConfig(algorithm="dual", xl_engine="lu"), device="cpu")
+    met = res.simplex.metrics
+    total = 0.0
+    for k in range(blocks):
+        A, b, c = xl_block(k)
+        ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, 10), method="highs")
+        if ref.status != 0:
+            raise AssertionError(f"HiGHS did not solve block {k}: {ref.message}")
+        total += float(ref.fun)
+    return dict(engine=met.engine, iterations=met.iterations,
+                objective=res.solution.objective_value, wall=met.wall_s,
+                blocks=float(np.float64(total)))
+
+
+def _xl_solve(tag, general, name, config, smi):
+    """One solve through ``api.solve(path)`` that the XL gate sends to the
+    host LU dual: ``engine == "dual-lu"``, no kernel launched, and the peak of
+    device memory no more than ``XL_PEAK_MIB`` above what was allocated."""
+    import torch
+
+    wrappers = _wrappers()
+    before = {name_: w.launches for name_, w in wrappers.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = _solve_file(general, name, config)
+    rise = torch.cuda.max_memory_allocated() - base
+    _check_optimal("xl", res, "csc")
+    met = res.simplex.metrics
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()
+                if w.launches != before[k]}
+    if met.engine != "dual-lu" or launched or rise >= XL_PEAK_MIB << 20:
+        raise AssertionError(f"[xl] {tag}: engine {met.engine!r}, kernels launched {launched}, "
+                             f"peak device memory {rise / 2**20:.1f} MiB above the start")
+    print(f"[xl] {tag}: m={met.m} n={met.n} nnz={met.nnz} (padded {met.m_padded}x"
+          f"{met.n_padded}) engine {met.engine} host LU engine {met.lu_engine} matrix_format "
+          f"{met.matrix_format} iterations {met.iterations} flips {met.bound_flips} solve_wall "
+          f"{met.wall_s:.3f} s iters/s {met.iters_per_s:.1f} api_wall {wall:.3f} s; no kernel "
+          f"launched, peak device memory {rise / 2**20:.2f} MiB above the start [{smi}]")
+    return res
+
+
+def phase_xl(smi, xl_refs):
+    """The XL gate: a default-config (``algorithm="primal"``) solve above
+    ``refactor_external_m`` answers on the host sparse-LU dual."""
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    # 1. the slice's max flow under a gate lowered below its m_pad
+    general, flow = slice_problem()
+    res = _xl_solve(f"max-flow N={N_NODES}, refactor_external_m={XL_GATE}", general,
+                    f"maxflow_{N_NODES}", SolverConfig(refactor_external_m=XL_GATE), smi)
+    met = res.simplex.metrics
+    ref = xl_refs.result()
+    obj = res.solution.objective_value
+    if met.m_padded <= XL_GATE or abs(obj - flow) > 1e-6 or ref["engine"] != "dual-lu" or \
+            met.iterations != ref["iterations"]:
+        raise AssertionError(f"[xl] max flow: m_pad {met.m_padded}, objective {obj!r} (scipy "
+                             f"{flow!r}), iterations {met.iterations}; algorithm='dual', "
+                             f"xl_engine='lu': {ref}")
+    print(f"[xl] max-flow N={N_NODES}: objective {obj:.12g} == scipy {flow:.12g}; iterations "
+          f"{met.iterations} == algorithm='dual', xl_engine='lu' (solved meanwhile on the "
+          f"host's CPU in {ref['wall']:.3f} s)")
+
+    # 2. above the default gate under the default config
+    general = xl_blocks_lp()
+    m, n = XL_BLOCK_SHAPE
+    res = _xl_solve(f"{XL_BLOCKS} blocks of {m}x{n}, default config", general,
+                    f"xl_blocks_{XL_BLOCKS}", None, smi)
+    met = res.simplex.metrics
+    obj, want = res.solution.objective_value, ref["blocks"]
+    if met.m_padded <= SolverConfig().refactor_external_m or \
+            abs(obj - want) > OBJ_REL * abs(want):
+        raise AssertionError(f"[xl] blocks: m_pad {met.m_padded}, objective {obj!r}, HiGHS's "
+                             f"sum {want!r}")
+    print(f"[xl] blocks: objective {obj:.12g} == sum of HiGHS's block optima {want:.12g} "
+          f"(rel {abs(obj - want) / abs(want):.2e})")
+
+
 def phase_cli():
     from relp_tpu_torch import cli
 
@@ -2811,6 +2960,9 @@ def main() -> int:
                                     range(FLEET_LANES), False),
     }
     fleet_pool.shutdown(wait=False)
+    xl_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    xl_refs = xl_pool.submit(_xl_references, N_NODES, XL_BLOCKS)
+    xl_pool.shutdown(wait=False)
     for phase in (phase_build, lambda: phase_probe(launches),
                   lambda: timings.update(phase_kernels(smi)),
                   lambda: phase_slice(smi, launches),
@@ -2821,7 +2973,8 @@ def main() -> int:
                   lambda: phase_analysis(smi), lambda: phase_colgen(smi, colgen_ref),
                   lambda: phase_ipm(smi, highs, highs_small),
                   lambda: phase_fleet(smi, launches, fleet_refs),
-                  lambda: phase_mesh(smi, highs_small), phase_cli):
+                  lambda: phase_mesh(smi, highs_small), lambda: phase_xl(smi, xl_refs),
+                  phase_cli):
         t0 = time.perf_counter()
         phase()
         print(f"[time] {time.perf_counter() - t0:.1f} s", flush=True)

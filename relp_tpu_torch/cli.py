@@ -138,9 +138,12 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--xl-engine", choices=["auto", "lu", "dense", "primal"], default="auto",
-        help="engine of --algorithm dual: 'lu' forces the host sparse-LU dual "
-        "simplex at any size; 'auto' and 'dense' run the device dual (there "
-        "is no row threshold here); 'primal' selects nothing",
+        help="XL-scale engine (XL: padded rows above SolverConfig."
+        "refactor_external_m, 12,288): 'lu' forces the host sparse-LU dual "
+        "simplex at any size; 'auto' uses it above the XL row threshold, where "
+        "a cold primal solve also goes to the dual first; 'dense' runs the "
+        "device dual; 'primal' stays on the device engines at any size (no "
+        "host-LU routing)",
     )
     ap.add_argument(
         "--dual-pricing", choices=["dse", "devex"], default="dse",

@@ -12,8 +12,12 @@ bounds, warm-started from the perturbed optimum.
 
 ``algorithm="dual"`` (without a warm start or perturbation) first runs the
 dual simplex from the all-artificial basis (``_run_dual`` over
-simplex/dual.py, or over the host sparse-LU dual under ``xl_engine="lu"``)
-and hands to the primal when the dual cannot certify optimality.
+simplex/dual.py, or over the host sparse-LU dual of simplex/lu_host.py under
+``xl_engine="lu"`` and above the XL gate) and hands to the primal when the
+dual cannot certify optimality.  The JAX driver's XL gate
+(``m_pad > config.refactor_external_m``) routes as there: a cold primal
+solve above it goes to that dual chain first, and on a CUDA device a second
+host-LU attempt from the slack basis comes before the device primal.
 
 ``algorithm="pdlp"`` routes through the first-order engine first
 (``_run_pdlp`` over fom/pdhg.py: host scaling, the operator of the scaled
@@ -185,7 +189,7 @@ class _Padded:
     shard_to: Optional[List[torch.device]] = None
     iterations: int = 0        # of every engine that ran
     host_reads: int = 0
-    lu_flips: int = 0          # bound flips of the host LU dual's runs
+    dual_flips: int = 0        # bound flips of the dual engines' runs (host LU and device)
     _a_pad: Optional[sp.csc_matrix] = None
     _device_A: Optional[tuple] = None
     _primal_A: Optional[object] = None
@@ -826,7 +830,7 @@ def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None)
     if out is None:
         return None
     p.iterations += int(out.it)
-    p.lu_flips += int(out.bound_flips)
+    p.dual_flips += int(out.bound_flips)
     _log.info("dual-lu done status=%d it=%d pivots=%d flips=%d engine=%s",
               int(out.status), int(out.it), out.pivots, out.bound_flips, lu_engine())
     if int(out.status) != st.OPTIMAL:
@@ -862,42 +866,63 @@ def _dual_start(p: _Padded):
     return lb_d, ub_d, warm, need_low, need_up
 
 
+def _routes_xl_on_host(dev: torch.device) -> bool:
+    """Whether a primal solve above ``config.refactor_external_m`` makes the
+    second host-LU attempt: on an accelerator only, as the JAX driver's
+    ``platform != "cpu"`` (a CPU has no device-memory ceiling)."""
+    return dev.type == "cuda"
+
+
+def _lu_answered(p: _Padded, fo: dict):
+    """Name the host sparse-LU dual in ``fo`` as the engine that answered."""
+    from relp_tpu_torch.simplex.lu_host import lu_engine
+
+    fo.update(engine="dual-lu", matrix_format="csc", lu_engine=lu_engine())
+
+
 def _run_dual(p: _Padded, fo: dict):
-    """Dual simplex from scratch (``config.algorithm="dual"``) from
-    ``_dual_start``; the temporary box is verified inactive at the optimum.
-    ``xl_engine="lu"`` runs the host sparse-LU dual (simplex/lu_host.py), any
-    other value the device dual (simplex/dual.py).  Returns the output on a
-    trusted OPTIMAL, else None (the caller falls back to the primal).
-    ``fo`` receives the engine's name and its flips."""
+    """Dual simplex from scratch from ``_dual_start``; the temporary box is
+    verified inactive at the optimum.  The JAX driver's gate: under
+    ``xl_engine="lu"`` at any size, and under "auto" above
+    ``config.refactor_external_m`` (XL), the host sparse-LU dual
+    (simplex/lu_host.py) runs, and under "auto" the device dual
+    (simplex/dual.py) after it when it cannot certify; otherwise (below the
+    gate, or "dense" and "primal") the device dual.  Returns the output on
+    a trusted OPTIMAL, else None (the caller falls back to the primal).
+    ``fo`` receives the answering engine's name."""
     from relp_tpu_torch.simplex.dual import solve_core_dual
     from relp_tpu_torch.utils.metrics import logger as _log
 
     cfg = p.config
     boxM = float(cfg.dual_box)
     lb_d, ub_d, warm, need_low, need_up = _dual_start(p)
-    if cfg.xl_engine == "lu":
-        from relp_tpu_torch.simplex.lu_host import lu_engine
-
-        fo.update(engine="dual-lu", matrix_format="csc", lu_engine=lu_engine())
+    out = None
+    if cfg.xl_engine == "lu" or (cfg.xl_engine == "auto"
+                                 and p.m_pad > cfg.refactor_external_m):
         out = _run_dual_lu_host(p, lb_d, ub_d, warm)
-        fo["bound_flips"] = p.lu_flips
-        if out is None:
+        if out is None and cfg.xl_engine == "lu":
             return None
-    else:
-        fo["engine"] = "dual"
+    if out is None:
         out = solve_core_dual(p.device_A()[0], p.b, p.c, lb_d, ub_d, cfg=cfg,
                               max_iter=p.max_iter, **warm)
         p.iterations += int(out.it)
         p.host_reads += out.host_reads
-        fo["bound_flips"] = int(out.flips)
+        p.dual_flips += int(out.flips)
         _log.info("dual done it=%d status=%d flips=%d art=%.3e obj=%.9e", int(out.it),
-                  int(out.status), fo["bound_flips"], float(out.art_inf), float(out.obj))
+                  int(out.status), int(out.flips), float(out.art_inf), float(out.obj))
         if int(out.status) != st.OPTIMAL:
             return None
+        engine = "dual"
+    else:
+        engine = "dual-lu"
     x = _host(out.x)
     if bool(np.any((need_low & (x <= -0.5 * boxM)) | (need_up & (x >= 0.5 * boxM)))):
         _log.info("dual: temporary box binds — not a certificate for the original")
         return None
+    if engine == "dual":
+        fo["engine"] = "dual"
+    else:
+        _lu_answered(p, fo)
     return out
 
 
@@ -1049,9 +1074,13 @@ def solve_computational_form(
     runs the first-order engine and, under
     ``pdlp_crossover``, recovers the vertex behind its point;
     ``config.algorithm="dual"`` (under the same conditions) first runs the
-    dual simplex from scratch.  Where that engine cannot certify optimality
-    the primal simplex solves instead, and ``SolveMetrics.engine`` says which
-    engine's answer this is."""
+    dual simplex from scratch, and so does any solve that no first-order
+    engine answered when ``m_pad > config.refactor_external_m`` (``_run_dual``:
+    above that gate the host LU dual under ``xl_engine="auto"``).  On a CUDA
+    device a solve above the gate still unanswered tries the host LU dual from
+    its basis (``_routes_xl_on_host``).  Where no engine certifies optimality
+    the primal simplex solves, and ``SolveMetrics.engine`` says which engine's
+    answer this is ("X→Y": X ran first and could not certify, Y answered)."""
     dev = resolve_device(device)
     m, n = cf.m, cf.n
 
@@ -1096,23 +1125,58 @@ def solve_computational_form(
                     art_sign0=p.host_art_sign(vstat_cold), phase0=1)
 
     fo = {}
-    engine = "primal"
+    engine = "primal"  # the engine that answers
+    tried = None       # the first engine that ran and could not certify
     with Timer() as t:
         outs = []
         out = None
         algo = config.algorithm
         if algo in ("pdlp", "ipm") and cold:
-            # None: fall back to the primal below
+            # None: fall back to the simplex below
             out = _run_pdlp(p, fo) if algo == "pdlp" else _run_ipm(p, fo)
-            engine = algo if out is not None else f"{algo}→primal"
-            if out is not None and config.pdlp_crossover:
-                vertex = _crossover(p, out, fo)
-                if vertex is not None:
-                    out, engine = vertex, f"{algo}+crossover"
-        if config.algorithm == "dual" and cold:
+            if out is None:
+                tried = algo
+            else:
+                engine = algo
+                if config.pdlp_crossover:
+                    vertex = _crossover(p, out, fo)
+                    if vertex is not None:
+                        out, engine = vertex, f"{algo}+crossover"
+        # the JAX driver's XL gate: above refactor_external_m a cold solve
+        # that no first-order engine answered goes to the dual chain too
+        xl = m_pad > config.refactor_external_m
+        if (algo == "dual" or (out is None and xl)) and cold:
             out = _run_dual(p, fo)  # None: fall back to the primal below
-            engine = fo["engine"] if out is not None else "dual→primal"
+            if out is None:
+                tried = tried or "dual"
+            else:
+                engine = fo["engine"]
+        if (out is None and xl and config.xl_engine in ("auto", "lu")
+                and _routes_xl_on_host(dev)):
+            # on the card, a second host-LU attempt before the device primal:
+            # per pivot O(nnz) host work against the device's dense O(m²)
+            # B⁻¹, which above the gate may not fit.  It starts from the
+            # cold (or caller's) basis with repair; under perturb it first
+            # solves on the perturbed bounds and warm-starts from that.
+            warm_lu = warm
+            if "basis0" not in warm_lu:  # slack-crash dict: a cold start
+                vstat_cold = _cold_vstat(lb, ub)
+                warm_lu = dict(basis0=n_pad + np.arange(m_pad), vstat0=vstat_cold,
+                               art_sign0=p.host_art_sign(vstat_cold))
+            if config.perturb > 0:
+                out_p = _run_dual_lu_host(p, *_perturbed_bounds(lb, ub, config.perturb),
+                                          warm_lu, repair=True)
+                if out_p is not None:
+                    warm_lu = dict(basis0=out_p.basis, vstat0=out_p.vstat,
+                                   art_sign0=out_p.art_sign)
+            out = _run_dual_lu_host(p, lb.copy(), ub.copy(), warm_lu, repair=True)
+            if out is not None:
+                _lu_answered(p, fo)
+                engine = "dual-lu"
         if out is None:
+            # the primal: the JAX driver's _run_primal_xl above the gate on an
+            # accelerator, or under xl_engine="primal", is this package's only
+            # primal loop (PrimalKernel always refactorizes outside its step)
             if config.perturb > 0:
                 # anti-degeneracy: solve with expanded bounds first (ties
                 # broken), then clean up against the true bounds from the
@@ -1123,6 +1187,8 @@ def solve_computational_form(
                             art_sign0=outs[-1].art_sign, phase0=int(outs[-1].phase))
             out = p.solve_core(lb, ub, warm, p.max_iter)
         outs.append(out)
+        if tried is not None:
+            engine = f"{tried}→{engine}"
         status = int(out.status)
         x = _host(out.x)
 
@@ -1133,9 +1199,10 @@ def solve_computational_form(
         status=kind.value, iterations=p.iterations, wall_s=t.elapsed, m=m, n=n,
         m_padded=m_pad, n_padded=n_pad, art_residual=float(out.art_inf),
         phase=int(out.phase), nnz=int(p.A_csc.nnz),
-        matrix_format=p.device_A()[1] if p._device_A is not None else fo["matrix_format"],
+        matrix_format=(p.device_A()[1] if p._device_A is not None
+                       and not engine.endswith("dual-lu") else fo["matrix_format"]),
         device=str(dev), engine=engine, lu_engine=fo.get("lu_engine", ""),
-        host_reads=p.host_reads, bound_flips=fo.get("bound_flips", 0),
+        host_reads=p.host_reads, bound_flips=p.dual_flips,
         check_violation=check_violation,
         fo_iterations=fo.get("iterations", 0), fo_f32_iterations=fo.get("f32_iterations", 0),
         fo_rounds=fo.get("rounds", 0), fo_round_reads=fo.get("round_reads", 0),

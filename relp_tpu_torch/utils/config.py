@@ -3,9 +3,14 @@
 Field names and defaults are those of ``relp_tpu.utils.config.SolverConfig``
 for every field this package honours, so a config reads the same in both
 packages.  Fields that existed only for the TPU (``device_chunk_iters``,
-``refactor_external_m``, ``newton_refactor``, ``bucket_shapes``) are gone.
-Every choice field is validated: an unknown value is a ``ValueError``, and
-``mesh_cols`` must be an int.
+``newton_refactor``, ``bucket_shapes``) are gone.  ``refactor_external_m``
+stays with the JAX package's name and default, but not with its TPU meaning
+(move the refactorization out of the loop): this package's primal loop always
+refactorizes outside its step.  Here it is the size gate of the engine
+routing, as it also is in the JAX driver: above it a dual solve, and a cold
+primal one, runs the host sparse-LU dual first (``xl_engine``).  Every choice
+field is validated: an unknown value is a ``ValueError``, ``mesh_cols`` must
+be an int and ``refactor_external_m`` an int of at least 1.
 """
 
 from __future__ import annotations
@@ -159,11 +164,21 @@ class SolverConfig:
     # and "sort" takes half the wall per iteration (PERF.md), so it is the
     # default here
     dual_ratio: str = "sort"
-    # engine of algorithm="dual": "auto" and "dense" run the device dual at
-    # every size (there is no size threshold here: the JAX package's exists
-    # for the TPU's memory), "lu" the host sparse-LU dual (simplex/lu_host.py)
-    # at any size; "primal" is accepted and selects nothing: the JAX package's
-    # externally refactorized primal is this package's only primal loop
+    # the XL gate: a solve with m_pad > refactor_external_m is XL.  An XL
+    # solve under algorithm="primal" (cold: no warm start, no perturb), or
+    # whose first-order engine gave up, goes to the dual chain as under
+    # algorithm="dual"; on a CUDA device a primal that is still unanswered
+    # then tries the host LU dual from the slack basis (under perturb, from
+    # the perturbed bounds' optimum) before the device primal.  The device
+    # engines' dense B⁻¹ grows as m_pad²: on an 80 GB H100 the primal's peak
+    # was 12.0 GiB at m_pad 16,376 and passes the card near 42,000 (PERF.md)
+    refactor_external_m: int = 12288
+    # XL engine: "auto" the host sparse-LU dual (simplex/lu_host.py) above the
+    # gate, then the device dual if it cannot certify, and the device dual
+    # below it; "lu" the host LU dual at any size, and no device dual after it;
+    # "dense" the device dual at any size; "primal" as "dense" for the dual
+    # chain, and no host-LU attempt before the primal (the JAX package's
+    # externally refactorized primal is this package's only primal loop)
     xl_engine: str = "auto"
     # branch-and-bound variable selection: "pseudo" = pseudo-cost product
     # rule learned from every solved child; "fractional" = most fractional
@@ -196,6 +211,10 @@ class SolverConfig:
     def __post_init__(self):
         if not isinstance(self.mesh_cols, numbers.Integral) or isinstance(self.mesh_cols, bool):
             raise ValueError(f"SolverConfig.mesh_cols must be an int, got {self.mesh_cols!r}")
+        m = self.refactor_external_m
+        if not isinstance(m, numbers.Integral) or isinstance(m, bool) or m < 1:
+            raise ValueError(
+                f"SolverConfig.refactor_external_m must be an int >= 1, got {m!r}")
         for name, allowed in _CHOICES.items():
             if getattr(self, name) not in allowed:
                 raise ValueError(

@@ -39,7 +39,9 @@ class SolveMetrics:
     # (the first-order engine gave up and the primal solved), "dual" (the
     # device dual simplex), "dual-lu" (the host sparse-LU dual),
     # "dual→primal" (the dual could not certify and the primal solved), and
-    # "ipm", "ipm+crossover", "ipm→primal" as for "pdlp"
+    # "ipm", "ipm+crossover", "ipm→primal" as for "pdlp"; above the XL gate
+    # (refactor_external_m) also "pdlp→dual-lu", "pdlp→dual" and, on a CUDA
+    # device, "dual→dual-lu" (the host LU dual's second attempt answered)
     engine: str = ""
     # update engine of the host LU under "dual-lu": "forrest-tomlin" (the
     # native library) or "product-form"

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of relp_tpu_torch's iterations goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual|ipm|
+    python3 tools/profile_torch_slice.py [--problem maxflow|dense|pdlp|dual|ipm|xl|
                                                     fleet-primal|fleet-pdlp|fleet-ipm]
                                          [--nodes 4096] [--iters 600] [--out FILE]
                                          [--crossover] [--pdlp-matrix auto|bricks]
                                          [--mesh-cols K] [--lane-options NAME,...]
+                                         [--xl-nodes N,...] [--xl-engines NAME,...] [--xl-dense]
+                                         [--xl-lu-max-iter K]
 
 Builds one of the two LPs that ``chip_smoke.py`` solves (the seeded max-flow
 LP of ``--nodes`` nodes on the ELL operator, or the dense LP at 768 × 1536 on
@@ -42,6 +44,21 @@ only), then a profiled run without crossover: kernel time, launches and
 host reads per interior-point iteration, the heaviest kernels, and the device
 time under ``aten::mm`` (the GEMM, and the vector-matrix products ``v @ A``),
 the Cholesky, its solves and ``aten::mv`` (the products ``A @ x``).
+
+``--problem xl`` times the three engines the XL gate chooses between, one
+after the other in one process, on the max flows of ``--xl-nodes`` nodes
+(default 4,096, 8,192 and 16,384) and, with ``--xl-dense``, on the dense LP
+at 768 × 1536: the device primal (``algorithm="primal"`` with
+``refactor_external_m`` above every ``m_pad``, so no gate fires), the device
+dual (``algorithm="dual", xl_engine="dense"``) and the host sparse-LU dual
+(``algorithm="dual", xl_engine="lu"``), each through the driver's engine call
+from a cold start (``_Padded.solve_core``, ``_run_dual``: no fall back to
+another engine), its operator or factors built inside the timed wall.  Per
+run: iterations, wall and iterations per second, the peak of device memory
+above what was allocated before it, the LU's update engine, and the
+objective against scipy's max flow.  ``--xl-engines`` picks the engines
+(``primal,dual,lu``); ``--xl-lu-max-iter`` caps the host LU dual's iterations
+(its iterations per second are then the reading).
 
 ``--problem fleet-{primal,pdlp,ipm}`` takes one of ``chip_smoke.py``'s
 fleets through ``solve_general_forms_batched``: the lane-batched primal on
@@ -525,9 +542,78 @@ def _profile_fleet(args, smi, option_name, options) -> list[str]:
     return lines
 
 
+XL_ENGINES = {  # engine -> the config that sends a cold solve to it, ungated
+    "primal": dict(refactor_external_m=1 << 30),
+    "dual": dict(algorithm="dual", xl_engine="dense", refactor_external_m=1 << 30),
+    "lu": dict(algorithm="dual", xl_engine="lu"),
+}
+
+
+def profile_xl(args, smi) -> list[str]:
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.presolve.engine import presolve
+    from relp_tpu_torch.simplex import driver
+    from relp_tpu_torch.simplex import status as st
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    problems = [(f"max-flow N={n}", lambda n=n: chip_smoke.slice_problem(n))
+                for n in (int(v) for v in args.xl_nodes.split(","))]
+    if args.xl_dense:
+        m, n = chip_smoke.DENSE_SHAPE
+        problems.append((f"dense LP {m}x{n}", lambda: (dense_lp(m, n), None)))
+    dev = torch.device("cuda")
+    # warm-up, untimed: the kernels' build, the libraries' handles, the allocator
+    for engine in XL_ENGINES:
+        driver.solve_general_form(chip_smoke.slice_problem(256)[0],
+                                  SolverConfig(**XL_ENGINES[engine]), device=dev)
+    lines = []
+    for name, make in problems:
+        general, want = make()
+        presolve(general)
+        cf = build_computational_form(general, scale=True)
+        for engine in args.xl_engines.split(","):
+            cap = args.xl_lu_max_iter if engine == "lu" else 0
+            config = SolverConfig(max_iter=cap, **XL_ENGINES[engine])
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            p = driver._Padded.of(cf, config, dev)
+            fo = {}
+            if engine == "primal":
+                vstat = driver._cold_vstat(p.lb, p.ub).astype(np.int64)
+                warm = dict(basis0=p.n_pad + np.arange(p.m_pad), vstat0=vstat,
+                            art_sign0=p.host_art_sign(vstat), phase0=1)
+                out = p.solve_core(p.lb, p.ub, warm, p.max_iter)
+                certified = int(out.status) == st.OPTIMAL
+            else:
+                out = driver._run_dual(p, fo)
+                certified = out is not None
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            obj = cf.objective_of(driver._host(out.x)[: cf.n]) if certified else float("nan")
+            ref = f" (scipy {want:.12g})" if want is not None else ""
+            capped = f", capped at {cap}" if cap else ""
+            lines.append(
+                f"[profile] xl {name} engine {engine}: m_pad {p.m_pad} n_pad {p.n_pad} "
+                f"iterations {p.iterations}{capped} certified {certified} wall {wall:.3f} s "
+                f"({p.iterations / wall:.1f} it/s) peak device memory {peak / 2**20:.1f} MiB "
+                f"objective {obj:.12g}{ref} lu_engine {fo.get('lu_engine', '-')} [{smi}]")
+            print(lines[-1], flush=True)
+            del p, out
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp", "dual", "ipm",
+    ap.add_argument("--problem", choices=("maxflow", "dense", "pdlp", "dual", "ipm", "xl",
                                           *FLEET_PARTS), default="maxflow")
     ap.add_argument("--nodes", type=int, default=4096, help="size of the max-flow graph")
     ap.add_argument("--iters", type=int, default=600)
@@ -541,6 +627,14 @@ def main(argv=None) -> int:
     ap.add_argument("--lane-options", default="",
                     help="with --problem fleet-primal: configs to profile in turn, comma-separated "
                          f"({', '.join(LANE_OPTIONS)})")
+    ap.add_argument("--xl-nodes", default="4096,8192,16384",
+                    help="with --problem xl: the max flows' node counts, comma-separated")
+    ap.add_argument("--xl-engines", default="primal,dual,lu",
+                    help="with --problem xl: the engines to time in turn (primal, dual, lu)")
+    ap.add_argument("--xl-dense", action="store_true",
+                    help="with --problem xl: the dense LP at 768 x 1536 too")
+    ap.add_argument("--xl-lu-max-iter", type=int, default=0,
+                    help="with --problem xl: cap the host LU dual's iterations (0: none)")
     ap.add_argument("--count-ops", action="store_true",
                     help="with --problem dual: count tensor operations on the CPU instead")
     args = ap.parse_args(argv)
@@ -563,11 +657,12 @@ def main(argv=None) -> int:
     from relp_tpu_torch.utils.config import SolverConfig
 
     smi = chip_smoke.phase_device()
-    if args.problem in ("pdlp", "dual", "ipm", *FLEET_PARTS):
-        profilers = {"pdlp": profile_pdlp, "dual": profile_dual, "ipm": profile_ipm}
+    if args.problem in ("pdlp", "dual", "ipm", "xl", *FLEET_PARTS):
+        profilers = {"pdlp": profile_pdlp, "dual": profile_dual, "ipm": profile_ipm,
+                     "xl": profile_xl}
         lines = profilers.get(args.problem, profile_fleet)(args, smi)
-        shown = [line for line in lines if line.startswith("[profile]")]
-        print("\n".join(shown))
+        if args.problem != "xl":  # profile_xl prints each line as it is read
+            print("\n".join(line for line in lines if line.startswith("[profile]")))
         if args.out:
             out = Path(args.out)
             out.parent.mkdir(parents=True, exist_ok=True)
