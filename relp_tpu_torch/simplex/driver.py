@@ -66,7 +66,7 @@ from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.simplex.core import SolveOutput, solve_core
 from relp_tpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
 from relp_tpu_torch.utils.device import DeviceLike, device_list, resolve_device
-from relp_tpu_torch.utils.metrics import SolveMetrics, Timer
+from relp_tpu_torch.utils.metrics import SolveMetrics, Timer, recording, span
 
 
 @dataclass
@@ -908,8 +908,6 @@ def _run_dual(p: _Padded, fo: dict):
         p.iterations += int(out.it)
         p.host_reads += out.host_reads
         p.dual_flips += int(out.flips)
-        _log.info("dual done it=%d status=%d flips=%d art=%.3e obj=%.9e", int(out.it),
-                  int(out.status), int(out.flips), float(out.art_inf), float(out.obj))
         if int(out.status) != st.OPTIMAL:
             return None
         engine = "dual"
@@ -1127,7 +1125,7 @@ def solve_computational_form(
     fo = {}
     engine = "primal"  # the engine that answers
     tried = None       # the first engine that ran and could not certify
-    with Timer() as t:
+    with recording("solve") as rec, Timer() as t, span("solve"):
         outs = []
         out = None
         algo = config.algorithm
@@ -1195,8 +1193,8 @@ def solve_computational_form(
     kind = st.STATUS_TO_TYPE[status]
     device_outs = [o for o in outs if isinstance(o, SolveOutput)]
     check_violation = max((float(o.viol) for o in device_outs), default=0.0)
-    metrics = SolveMetrics(
-        status=kind.value, iterations=p.iterations, wall_s=t.elapsed, m=m, n=n,
+    metrics = dataclasses.replace(
+        rec, status=kind.value, iterations=p.iterations, wall_s=t.elapsed, m=m, n=n,
         m_padded=m_pad, n_padded=n_pad, art_residual=float(out.art_inf),
         phase=int(out.phase), nnz=int(p.A_csc.nnz),
         matrix_format=(p.device_A()[1] if p._device_A is not None

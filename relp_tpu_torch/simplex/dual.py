@@ -32,6 +32,14 @@ Host reads: one per iteration (the packed flags *running* and *refactor
 due* that the step returns), one before the first, and one per
 refactorization under ``refactor_mode="polish"`` (its residual check); the
 LU's minimum pivot is judged on the device.
+
+Spans (utils/metrics.py, on while a profiler records): ``dual.solve`` over
+the whole solve; in it ``dual.refactor``, ``dual.step``, ``dual.read`` (a
+read of the loop's flags: the host waits for the device there) and
+``dual.extract``; in a step ``dual.leaving`` (1.), ``dual.row`` (ρ and α),
+``dual.ratio`` (the candidates and the ratio test) and ``dual.pivot`` (3.).
+The kernel counts its refactorizations and LU rebuilds on the host and
+adds them to the open solve record.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.simplex.core import SolveOutput, _at, _nonbasic_values, _put
 from relp_tpu_torch.utils.config import SolverConfig
 from relp_tpu_torch.utils.device import DeviceLike, resolve_device
+from relp_tpu_torch.utils.metrics import count, span
 
 F64 = torch.float64
 F32 = torch.float32
@@ -123,6 +132,8 @@ class DualKernel:
         self.can_enter = lb < ub
         self.pos_ids = torch.arange(self.n, device=self.dev)
         self.host_reads = 0
+        self.refactorizations = 0
+        self.inverse_rebuilds = 0
 
     def _read(self, t: torch.Tensor):
         """Bring a small tensor to the host (one synchronisation)."""
@@ -136,28 +147,31 @@ class DualKernel:
 
     # ---- refactorization ----
     def refactor(self, s: DState) -> DState:
-        cfg = self.cfg
-        B, _ = _basis_matrix(self.A, s.basis, self.art_sign)
-        Binv = None
-        status = s.status
-        if cfg.refactor_mode == "polish":
-            # one Newton-Schulz step on the maintained inverse against the
-            # clean basis columns, X1 = X(2I − BX); a failed residual check
-            # (singular basis, placeholder warm inverse) rebuilds instead
-            X = s.Binv
-            X1 = X @ (2.0 * torch.eye(self.m, dtype=F64, device=self.dev) - B @ X)
-            resid = inverse_residual(B, X1)
-            if self._read(torch.isfinite(resid) & (resid < 1e-9)):
-                Binv = X1
-        if Binv is None:
-            Binv, min_piv = lu_inverse(B)
-            # NaN-safe (NaN >= tol is False): a singular basis ends the solve
-            status = torch.where(min_piv >= cfg.singular_tol, status, st.NUMERICAL)
-        xB, pi, d, beta = _derived_state(
-            self.A, self.b, self.c, self.lb_tot, self.ub_tot, s.basis, s.vstat, Binv)
-        return dataclasses.replace(
-            s, Binv=Binv, xB=xB, pi=pi, d=d, beta=beta, status=status,
-            since_refactor=torch.zeros_like(s.since_refactor))
+        with span("dual.refactor"):
+            cfg = self.cfg
+            B, _ = _basis_matrix(self.A, s.basis, self.art_sign)
+            Binv = None
+            status = s.status
+            if cfg.refactor_mode == "polish":
+                # one Newton-Schulz step on the maintained inverse against the
+                # clean basis columns, X1 = X(2I − BX); a failed residual check
+                # (singular basis, placeholder warm inverse) rebuilds instead
+                X = s.Binv
+                X1 = X @ (2.0 * torch.eye(self.m, dtype=F64, device=self.dev) - B @ X)
+                resid = inverse_residual(B, X1)
+                if self._read(torch.isfinite(resid) & (resid < 1e-9)):
+                    Binv = X1
+            self.refactorizations += 1
+            if Binv is None:
+                self.inverse_rebuilds += 1
+                Binv, min_piv = lu_inverse(B)
+                # NaN-safe (NaN >= tol is False): a singular basis ends the solve
+                status = torch.where(min_piv >= cfg.singular_tol, status, st.NUMERICAL)
+            xB, pi, d, beta = _derived_state(
+                self.A, self.b, self.c, self.lb_tot, self.ub_tot, s.basis, s.vstat, Binv)
+            return dataclasses.replace(
+                s, Binv=Binv, xB=xB, pi=pi, d=d, beta=beta, status=status,
+                since_refactor=torch.zeros_like(s.since_refactor))
 
     # ---- the two bound-flipping ratio tests ----
     def _ratio_bisect(self, cand, ratio, cap, abs_alpha, viol_r):
@@ -214,129 +228,133 @@ class DualKernel:
         state."""
         A, cfg, n = self.A, self.cfg, self.n
         lb, ub, lb_tot, ub_tot = self.lb, self.ub, self.lb_tot, self.ub_tot
-        broken = ~torch.isfinite(s.xB.sum() + s.pi.sum())
-        fresh = s.since_refactor == 0
+        with span("dual.step"):
+            with span("dual.leaving"):
+                broken = ~torch.isfinite(s.xB.sum() + s.pi.sum())
+                fresh = s.since_refactor == 0
 
-        k = s.basis
-        lbk = lb_tot[k]
-        ubk = ub_tot[k]
-        below = lbk - s.xB
-        above = s.xB - ubk
-        viol = torch.maximum(below, above).clamp_min(0.0)
-        # dual steepest edge: largest infeasibility scaled by the row norm
-        # of B⁻¹; the termination decision stays norm-free
-        r = torch.argmax(viol * viol / s.beta.clamp_min(1e-12))
-        primal_feasible = viol.max() <= cfg.eps_feas
-        r = torch.where(primal_feasible, torch.argmax(viol), r)
-        r1 = r.reshape(1)
+                k = s.basis
+                lbk = lb_tot[k]
+                ubk = ub_tot[k]
+                below = lbk - s.xB
+                above = s.xB - ubk
+                viol = torch.maximum(below, above).clamp_min(0.0)
+                # dual steepest edge: largest infeasibility scaled by the row norm
+                # of B⁻¹; the termination decision stays norm-free
+                r = torch.argmax(viol * viol / s.beta.clamp_min(1e-12))
+                primal_feasible = viol.max() <= cfg.eps_feas
+                r = torch.where(primal_feasible, torch.argmax(viol), r)
+                r1 = r.reshape(1)
+            with span("dual.row"):
+                # pivot row and (incrementally maintained) reduced costs
+                rho = s.Binv.index_select(0, r1)[0]
+                alpha = A.rmatvec(rho)
+                d = s.d
+                vs = s.vstat[:n]
+            with span("dual.ratio"):
+                leaving_below = _at(below, r) > _at(above, r)  # xB_r under its lower bound
+                # sign-compatible entering candidates keep dual feasibility:
+                #   below-lower: at-lower with α<0, at-upper with α>0, free either
+                # (mirrored when above-upper; fold by flipping α's sign)
+                alpha_eff = torch.where(leaving_below, alpha, -alpha)
+                is_free = vs == st.NB_FREE
+                at_l = (vs == st.NB_LOWER) | is_free
+                at_u = (vs == st.NB_UPPER) | is_free
+                cand = (at_l & (alpha_eff < -cfg.eps_pivot)) | (at_u & (alpha_eff > cfg.eps_pivot))
+                cand = cand & self.can_enter & (vs != st.BASIC)
+                abs_alpha = alpha_eff.abs()
+                ratio = torch.where(cand, d.abs() / abs_alpha.clamp_min(1e-300), INF)
 
-        # pivot row and (incrementally maintained) reduced costs
-        rho = s.Binv.index_select(0, r1)[0]
-        alpha = A.rmatvec(rho)
-        d = s.d
-        vs = s.vstat[:n]
+                # ---- bound-flipping ratio test (long-step dual, vectorized) ----
+                # passing candidate j takes its flip capacity (ub_j−lb_j)·|α_j| off the
+                # slope; unboxed candidates have infinite capacity and always block
+                cap = torch.where(cand, self.boxed_range * abs_alpha, 0.0)
+                viol_r = _at(viol, r)
+                ratio_test = self._ratio_bisect if cfg.dual_ratio == "bisect" else self._ratio_sort
+                q, has_entering, flip_mask = ratio_test(cand, ratio, cap, abs_alpha, viol_r)
+                n_flips = flip_mask.sum()
+            with span("dual.pivot"):
+                # pivot quantities
+                u = A.ftran(s.Binv, q)
+                p = _at(u, r)
+                ok_pivot = p.abs() > cfg.eps_pivot
+                p_safe = torch.where(p.abs() > 1e-300, p, 1.0)
+                do_pivot = ~primal_feasible & has_entering & ~broken & ok_pivot
 
-        leaving_below = _at(below, r) > _at(above, r)  # xB_r under its lower bound
-        # sign-compatible entering candidates keep dual feasibility:
-        #   below-lower: at-lower with α<0, at-upper with α>0, free either
-        # (mirrored when above-upper; fold by flipping α's sign)
-        alpha_eff = torch.where(leaving_below, alpha, -alpha)
-        is_free = vs == st.NB_FREE
-        at_l = (vs == st.NB_LOWER) | is_free
-        at_u = (vs == st.NB_UPPER) | is_free
-        cand = (at_l & (alpha_eff < -cfg.eps_pivot)) | (at_u & (alpha_eff > cfg.eps_pivot))
-        cand = cand & self.can_enter & (vs != st.BASIC)
-        abs_alpha = alpha_eff.abs()
-        ratio = torch.where(cand, d.abs() / abs_alpha.clamp_min(1e-300), INF)
+                # ---- the batch of bound flips: one A·dx and one product with B⁻¹,
+                # computed every iteration and selected (dx is zero without flips)
+                at_lower = vs == st.NB_LOWER
+                dx = torch.where(flip_mask, torch.where(at_lower, self.boxed_range,
+                                                        -self.boxed_range), 0.0)
+                xB_f = torch.where(do_pivot & (n_flips > 0), s.xB - s.Binv @ A.matvec(dx), s.xB)
+                flip_to = torch.where(at_lower, st.NB_UPPER, st.NB_LOWER)
+                vstat_flip = torch.where(flip_mask, flip_to, vs)
 
-        # ---- bound-flipping ratio test (long-step dual, vectorized) ----
-        # passing candidate j takes its flip capacity (ub_j−lb_j)·|α_j| off the
-        # slope; unboxed candidates have infinite capacity and always block
-        cap = torch.where(cand, self.boxed_range * abs_alpha, 0.0)
-        viol_r = _at(viol, r)
-        ratio_test = self._ratio_bisect if cfg.dual_ratio == "bisect" else self._ratio_sort
-        q, has_entering, flip_mask = ratio_test(cand, ratio, cap, abs_alpha, viol_r)
-        n_flips = flip_mask.sum()
+                bound_r = torch.where(leaving_below, _at(lbk, r), _at(ubk, r))
+                theta_p = (_at(xB_f, r) - bound_r) / p_safe
+                vq = _at(vs, q)
+                start_val = torch.where(vq == st.NB_UPPER, _at(ub, q),
+                                        torch.where(vq == st.NB_LOWER, _at(lb, q), 0.0))
 
-        # pivot quantities
-        u = A.ftran(s.Binv, q)
-        p = _at(u, r)
-        ok_pivot = p.abs() > cfg.eps_pivot
-        p_safe = torch.where(p.abs() > 1e-300, p, 1.0)
-        do_pivot = ~primal_feasible & has_entering & ~broken & ok_pivot
+                xB_new = _put(xB_f - theta_p * u, r, start_val + theta_p)
+                d_q = _at(d, q)
+                theta_d = d_q / p_safe
+                pi_new = s.pi + theta_d * rho
+                # incremental reduced costs: d' = d − θ_D·α (the entering column's d
+                # becomes 0, the leaving column's −θ_D)
+                d_new = _put(d - theta_d * alpha, q, torch.zeros_like(d_q))
+                ratio_u = u / p_safe
+                beta_r = _at(s.beta, r)
+                if cfg.dual_pricing == "devex":
+                    # devex reference weights (dual form): γ_i' = max(γ_i,
+                    # (u_i/p)²·γ_r), γ_r' = max(γ_r/p², 1), from the FTRAN column alone
+                    beta_new = torch.maximum(s.beta, ratio_u * ratio_u * beta_r)
+                    beta_new = _put(beta_new, r, (beta_r / (p_safe * p_safe)).clamp_min(1.0))
+                    beta_new = beta_new.clamp(1e-12, 1e12)
+                else:
+                    # Forrest–Goldfarb exact dual-steepest-edge weight update:
+                    #   τ = B⁻¹·(B⁻¹[r,:])ᵀ;  β_r' = β_r/p²;
+                    #   β_i' = β_i − 2(u_i/p)·τ_i + (u_i/p)²·β_r   (i ≠ r)
+                    tau = s.Binv @ rho
+                    beta_new = s.beta - 2.0 * ratio_u * tau + ratio_u * ratio_u * beta_r
+                    beta_new = _put(beta_new, r, beta_r / (p_safe * p_safe)).clamp_min(1e-12)
 
-        # ---- the batch of bound flips: one A·dx and one product with B⁻¹,
-        # computed every iteration and selected (dx is zero without flips)
-        at_lower = vs == st.NB_LOWER
-        dx = torch.where(flip_mask, torch.where(at_lower, self.boxed_range, -self.boxed_range), 0.0)
-        xB_f = torch.where(do_pivot & (n_flips > 0), s.xB - s.Binv @ A.matvec(dx), s.xB)
-        flip_to = torch.where(at_lower, st.NB_UPPER, st.NB_LOWER)
-        vstat_flip = torch.where(flip_mask, flip_to, vs)
+                kr = _at(k, r)
+                leave_stat = torch.where(leaving_below, st.NB_LOWER, st.NB_UPPER)
+                leave_stat = torch.where(_at(lb_tot, kr) == _at(ub_tot, kr), st.NB_FIXED,
+                                         leave_stat)
+                vstat_new = torch.cat([vstat_flip, s.vstat[n:]])
+                vstat_new = _put(_put(vstat_new, kr, leave_stat), q, torch.full_like(kr, st.BASIC))
 
-        bound_r = torch.where(leaving_below, _at(lbk, r), _at(ubk, r))
-        theta_p = (_at(xB_f, r) - bound_r) / p_safe
-        vq = _at(vs, q)
-        start_val = torch.where(vq == st.NB_UPPER, _at(ub, q),
-                                torch.where(vq == st.NB_LOWER, _at(lb, q), 0.0))
+                status_new = torch.where(
+                    primal_feasible & fresh & ~broken,
+                    st.OPTIMAL,
+                    torch.where(~primal_feasible & ~has_entering & fresh & ~broken,
+                                st.INFEASIBLE, s.status),
+                )
+                wants_terminal = primal_feasible | (~primal_feasible & ~has_entering)
+                # a too-small pivot is a numerical event: rebuild and retry
+                force_refac = (wants_terminal & ~fresh) | broken | (
+                    ~primal_feasible & has_entering & ~ok_pivot)
 
-        xB_new = _put(xB_f - theta_p * u, r, start_val + theta_p)
-        d_q = _at(d, q)
-        theta_d = d_q / p_safe
-        pi_new = s.pi + theta_d * rho
-        # incremental reduced costs: d' = d − θ_D·α (the entering column's d
-        # becomes 0, the leaving column's −θ_D)
-        d_new = _put(d - theta_d * alpha, q, torch.zeros_like(d_q))
-        ratio_u = u / p_safe
-        beta_r = _at(s.beta, r)
-        if cfg.dual_pricing == "devex":
-            # devex reference weights (dual form): γ_i' = max(γ_i,
-            # (u_i/p)²·γ_r), γ_r' = max(γ_r/p², 1), from the FTRAN column alone
-            beta_new = torch.maximum(s.beta, ratio_u * ratio_u * beta_r)
-            beta_new = _put(beta_new, r, (beta_r / (p_safe * p_safe)).clamp_min(1.0))
-            beta_new = beta_new.clamp(1e-12, 1e12)
-        else:
-            # Forrest–Goldfarb exact dual-steepest-edge weight update:
-            #   τ = B⁻¹·(B⁻¹[r,:])ᵀ;  β_r' = β_r/p²;
-            #   β_i' = β_i − 2(u_i/p)·τ_i + (u_i/p)²·β_r   (i ≠ r)
-            tau = s.Binv @ rho
-            beta_new = s.beta - 2.0 * ratio_u * tau + ratio_u * ratio_u * beta_r
-            beta_new = _put(beta_new, r, beta_r / (p_safe * p_safe)).clamp_min(1e-12)
-
-        kr = _at(k, r)
-        leave_stat = torch.where(leaving_below, st.NB_LOWER, st.NB_UPPER)
-        leave_stat = torch.where(_at(lb_tot, kr) == _at(ub_tot, kr), st.NB_FIXED, leave_stat)
-        vstat_new = torch.cat([vstat_flip, s.vstat[n:]])
-        vstat_new = _put(_put(vstat_new, kr, leave_stat), q, torch.full_like(kr, st.BASIC))
-
-        status_new = torch.where(
-            primal_feasible & fresh & ~broken,
-            st.OPTIMAL,
-            torch.where(~primal_feasible & ~has_entering & fresh & ~broken,
-                        st.INFEASIBLE, s.status),
-        )
-        wants_terminal = primal_feasible | (~primal_feasible & ~has_entering)
-        # a too-small pivot is a numerical event: rebuild and retry
-        force_refac = (wants_terminal & ~fresh) | broken | (
-            ~primal_feasible & has_entering & ~ok_pivot)
-
-        # B⁻¹ last: everything above reads the pre-pivot inverse
-        rank_one_basis_update(s.Binv, u, r, apply=do_pivot)
-        s_out = DState(
-            basis=torch.where(do_pivot, _put(k.clone(), r, q), k),
-            vstat=torch.where(do_pivot, vstat_new, s.vstat),
-            xB=torch.where(do_pivot, xB_new, s.xB),
-            Binv=s.Binv,
-            pi=torch.where(do_pivot, pi_new, s.pi),
-            d=torch.where(do_pivot, d_new, s.d),
-            beta=torch.where(do_pivot, beta_new, s.beta),
-            status=status_new,
-            it=s.it + 1,
-            since_refactor=torch.where(
-                force_refac, cfg.refactor_period, s.since_refactor + do_pivot.long()),
-            repairs=s.repairs,
-            flips=s.flips + torch.where(do_pivot, n_flips, 0),
-        )
-        return s_out, self.flags(s_out)
+                # B⁻¹ last: everything above reads the pre-pivot inverse
+                rank_one_basis_update(s.Binv, u, r, apply=do_pivot)
+                s_out = DState(
+                    basis=torch.where(do_pivot, _put(k.clone(), r, q), k),
+                    vstat=torch.where(do_pivot, vstat_new, s.vstat),
+                    xB=torch.where(do_pivot, xB_new, s.xB),
+                    Binv=s.Binv,
+                    pi=torch.where(do_pivot, pi_new, s.pi),
+                    d=torch.where(do_pivot, d_new, s.d),
+                    beta=torch.where(do_pivot, beta_new, s.beta),
+                    status=status_new,
+                    it=s.it + 1,
+                    since_refactor=torch.where(
+                        force_refac, cfg.refactor_period, s.since_refactor + do_pivot.long()),
+                    repairs=s.repairs,
+                    flips=s.flips + torch.where(do_pivot, n_flips, 0),
+                )
+            return s_out, self.flags(s_out)
 
 
 def _tensor(v, dtype, dev):
@@ -400,41 +418,47 @@ def solve_core_dual(
     :class:`DState` (after the closing refactorization), what ``check_state``
     takes.
     """
-    A = as_device_operator(A, device)
-    m, n = A.shape
-    dev = A.device
-    b, c, lb, ub = (_tensor(v, F64, dev) for v in (b, c, lb, ub))
-    art_sign = (torch.ones(m, dtype=F64, device=dev) if art_sign0 is None
-                else _tensor(art_sign0, F64, dev))
-    K = DualKernel(A, b, c, lb, ub, art_sign, cfg, max_iter)
-    s = initial_state(basis0, vstat0, m, n, cfg, dev)
+    with span("dual.solve"):
+        A = as_device_operator(A, device)
+        m, n = A.shape
+        dev = A.device
+        b, c, lb, ub = (_tensor(v, F64, dev) for v in (b, c, lb, ub))
+        art_sign = (torch.ones(m, dtype=F64, device=dev) if art_sign0 is None
+                    else _tensor(art_sign0, F64, dev))
+        K = DualKernel(A, b, c, lb, ub, art_sign, cfg, max_iter)
+        s = initial_state(basis0, vstat0, m, n, cfg, dev)
 
-    # ---- the host loop: one read of the packed flags per iteration ----
-    running, refactor_due = K._read(K.flags(s))
-    while running:
-        if refactor_due:
-            s = K.refactor(s)
-        s, flags = K.step(s)
-        running, refactor_due = K._read(flags)
+        # ---- the host loop: one read of the packed flags per iteration ----
+        flags = K.flags(s)
+        while True:
+            with span("dual.read"):
+                running, refactor_due = K._read(flags)
+            if not running:
+                break
+            if refactor_due:
+                s = K.refactor(s)
+            s, flags = K.step(s)
 
-    s = dataclasses.replace(
-        s, status=torch.where(s.status == st.RUNNING, st.ITERATION_LIMIT, s.status))
-    # clean final refactorization for extraction
-    s = K.refactor(s)
-    if final_state is not None:
-        final_state.append((K, s))
+        s = dataclasses.replace(
+            s, status=torch.where(s.status == st.RUNNING, st.ITERATION_LIMIT, s.status))
+        # clean final refactorization for extraction
+        s = K.refactor(s)
+        count(refactorizations=K.refactorizations, inverse_rebuilds=K.inverse_rebuilds)
+        if final_state is not None:
+            final_state.append((K, s))
 
-    nb = _nonbasic_values(s.vstat, K.lb_tot, K.ub_tot)
-    nb = torch.where(s.vstat == st.BASIC, 0.0, nb)
-    x_pad = torch.zeros(n + 1, dtype=F64, device=dev)
-    x_pad[:n] = nb[:n]
-    structural = s.basis < n
-    x_pad[torch.where(structural, s.basis, n)] = torch.where(structural, s.xB, 0.0)
-    x = x_pad[:n]
-    return SolveOutput(
-        x=x, status=s.status, it=s.it, phase=torch.full_like(s.it, 2), basis=s.basis,
-        vstat=s.vstat, art_inf=torch.where(~structural, s.xB.abs(), 0.0).sum(),
-        pi=s.pi, obj=c @ x, art_sign=art_sign, host_reads=K.host_reads,
-        trace=torch.zeros((0, 8), dtype=F32, device=dev),
-        viol=torch.zeros((), dtype=F64, device=dev), flips=s.flips,
-    )
+        with span("dual.extract"):
+            nb = _nonbasic_values(s.vstat, K.lb_tot, K.ub_tot)
+            nb = torch.where(s.vstat == st.BASIC, 0.0, nb)
+            x_pad = torch.zeros(n + 1, dtype=F64, device=dev)
+            x_pad[:n] = nb[:n]
+            structural = s.basis < n
+            x_pad[torch.where(structural, s.basis, n)] = torch.where(structural, s.xB, 0.0)
+            x = x_pad[:n]
+            return SolveOutput(
+                x=x, status=s.status, it=s.it, phase=torch.full_like(s.it, 2), basis=s.basis,
+                vstat=s.vstat, art_inf=torch.where(~structural, s.xB.abs(), 0.0).sum(),
+                pi=s.pi, obj=c @ x, art_sign=art_sign, host_reads=K.host_reads,
+                trace=torch.zeros((0, 8), dtype=F32, device=dev),
+                viol=torch.zeros((), dtype=F64, device=dev), flips=s.flips,
+            )
