@@ -212,7 +212,10 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 Launch counts: every kernel's count is set to 0 just before each path that
 runs it (probe, slice, dense, pdlp, bricks, the primal and first-order fleets,
 the mesh phase's paths) and read just after (``xl`` requires that its paths
-launch none); launches made to
+launch none).  A launch replayed from a CUDA graph of the dual's step counts
+apart from those made from the host: the wrapper calls recorded into each
+graph, times its replays in the path (``REPLAYED``, and the report's
+``replayed_launches``); the dual's checks add the two.  Launches made to
 compare a kernel with its plain version do not count.  (``dual`` is the
 N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
 ``launches`` is the count of the path whose shape and mode the kernel's
@@ -351,20 +354,59 @@ def _wrappers():
             "probe_scale_f32": probe_scale_f32, "probe_scale_f64": probe_scale_f64}
 
 
-PATHS = {}  # path -> {kernel: launches}: what every driven path counted
+PATHS = {}  # path -> {kernel: launches}: what every driven path launched from the host
+REPLAYED = {}  # path -> {kernel: launches}: what it launched by replaying the dual's step graphs
 SOLVES = {}  # phase -> what a later phase compares with (the single solves' metrics)
+GRAPHS = []  # per step graph the dual captured: its wrapper calls recorded, its replays
+
+
+def count_graph_launches():
+    """Record, for each step graph the dual captures, the wrapper calls made
+    while its stream recorded (counted by the wrappers on the host, launched
+    only by its replays) and its replays."""
+    import torch
+
+    from relp_tpu_torch.simplex import dual
+
+    wrappers = _wrappers()
+    body, replay = dual.StepGraph.body, dual.StepGraph.replay
+
+    def recorded_body(self, Ks):
+        if not torch.cuda.is_current_stream_capturing():
+            return body(self, Ks)
+        before = {k: w.launches for k, w in wrappers.items()}
+        flags = body(self, Ks)
+        self.launch_record = {"recorded": {k: w.launches - before[k]
+                                           for k, w in wrappers.items()}, "replays": 0}
+        GRAPHS.append(self.launch_record)
+        return flags
+
+    def counted_replay(self):
+        self.launch_record["replays"] += 1
+        return replay(self)
+
+    dual.StepGraph.body, dual.StepGraph.replay = recorded_body, counted_replay
 
 
 @contextlib.contextmanager
 def counted(names, launches, path):
-    """Set the named kernels' counts to 0, run the path, record the counts
-    (in ``launches`` for the report and under ``PATHS[path]``)."""
+    """Set the named kernels' counts to 0, run the path, record the counts:
+    launched from the host (in ``launches`` for the report and under
+    ``PATHS[path]``) and replayed from the dual's step graphs (in
+    ``launches`` as "<kernel> replayed" and under ``REPLAYED[path]``)."""
     wrappers = _wrappers()
     for name in names:
         wrappers[name].launches = 0
+    first, replays = len(GRAPHS), [g["replays"] for g in GRAPHS]
     yield
-    PATHS[path] = {name: wrappers[name].launches for name in names}
+    new = GRAPHS[first:]
+    replays += [0] * len(new)
+    PATHS[path] = {name: wrappers[name].launches - sum(g["recorded"][name] for g in new)
+                   for name in names}
+    REPLAYED[path] = {name: sum(g["recorded"][name] * (g["replays"] - r)
+                                for g, r in zip(GRAPHS, replays)) for name in names}
     launches.update(PATHS[path])
+    launches.update({f"{name} replayed": v for name, v in REPLAYED[path].items()})
 
 
 def phase_device():
@@ -1614,10 +1656,12 @@ def phase_dual(smi, launches, highs, milp_ref):
 
     def checked_dual_solve(path, names, *args, **kwargs):
         """``_dual_solve`` under ``counted``, with ``check_state`` on the final
-        state of its ``solve_core_dual`` call (all four residuals under 1e-6)."""
+        state of its ``solve_core_dual`` call (all four residuals under 1e-6)
+        and its step graphs' replays against its ``graph_steps``."""
         kept = []
         solve_core_dual = dual.solve_core_dual
         dual.solve_core_dual = lambda *a, **k: solve_core_dual(*a, final_state=kept, **k)
+        first, replays = len(GRAPHS), sum(g["replays"] for g in GRAPHS)
         try:
             with counted(names, {}, path):
                 met = _dual_solve(*args, **kwargs)
@@ -1627,12 +1671,26 @@ def phase_dual(smi, launches, highs, milp_ref):
         chk = check_state(K.A, K.b, K.c, K.lb, K.ub, s.basis, s.vstat, s.xB, s.Binv, K.art_sign)
         if not chk.ok(1e-6):
             raise AssertionError(f"[dual] check_state of the final state: {chk}")
+        graphs = GRAPHS[first:]
+        replays = sum(g["replays"] for g in GRAPHS) - replays
+        if replays != met.graph_steps or len(graphs) != met.graph_captures or \
+                any(g["recorded"][names[0]] < 1 for g in graphs):
+            raise AssertionError(f"[dual] {replays} replays of {len(graphs)} step graphs "
+                                 f"recording {[g['recorded'][names[0]] for g in graphs]} "
+                                 f"{names[0]}; graph_steps {met.graph_steps} graph_captures "
+                                 f"{met.graph_captures}")
         its = max(met.iterations, 1)
-        print("[dual] launches "
+        print("[dual] launches from the host "
               + " ".join(f"{k} {v} ({v / its:.3f}/iter)" for k, v in PATHS[path].items())
+              + ", replayed " + " ".join(f"{k} {v} ({v / its:.3f}/iter)"
+                                         for k, v in REPLAYED[path].items())
+              + f" in {replays} steps from {len(graphs)} CUDA graphs"
               + "; check_state of the final state: "
               + " ".join(f"{k} {float(v):.2e}" for k, v in chk._asdict().items()))
         return met
+
+    def launched(path, name):
+        return PATHS[path][name] + REPLAYED[path][name]
 
     # 1. the slice's LP at full width, dual from scratch
     general, flow = slice_problem()
@@ -1640,7 +1698,7 @@ def phase_dual(smi, launches, highs, milp_ref):
                              f"maxflow_{N_NODES}", "ell", SolverConfig(algorithm="dual"), flow,
                              smi, abs_tol=1e-6)
     refactorizations = met.iterations // DEFAULT_CONFIG.refactor_period
-    if PATHS["dual"]["ell_price"] < met.iterations + refactorizations or \
+    if launched("dual", "ell_price") < met.iterations + refactorizations or \
             PATHS["dual"]["ell_spmv"] < max(refactorizations, 1):
         raise AssertionError(f"[dual] launches {PATHS['dual']} for {met.iterations} iterations")
     torch.cuda.empty_cache()
@@ -1664,7 +1722,7 @@ def phase_dual(smi, launches, highs, milp_ref):
     met = checked_dual_solve("dual dense", ("dense_price",), f"dense LP {m}x{n}",
                              dense_lp(m, n), f"dense_{m}x{n}", "dense",
                              SolverConfig(algorithm="dual"), highs.result(), smi)
-    if PATHS["dual dense"]["dense_price"] < met.iterations:
+    if launched("dual dense", "dense_price") < met.iterations:
         raise AssertionError(f"[dual] launches {PATHS['dual dense']} for {met.iterations} "
                              "iterations")
 
@@ -1717,7 +1775,8 @@ def phase_dual(smi, launches, highs, milp_ref):
         _check_mip(f"knapsack {shape[0]}x{shape[1]}, solve_mip (4 cut rounds, {budget} nodes)",
                    res.kind.value, res.objective, res.best_bound, res.nodes, res.lp_iterations,
                    wall, milp_ref[shape], smi)
-        print(f"[dual] mip launches dense_price {PATHS[f'mip {shape}']['dense_price']}")
+        print(f"[dual] mip launches dense_price {PATHS[f'mip {shape}']['dense_price']} "
+              f"from the host, {REPLAYED[f'mip {shape}']['dense_price']} replayed")
     if not res.is_optimal:
         raise AssertionError(f"[dual] mip {KNAPSACK_SMALL}: {res.kind}, not the optimum")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2941,6 +3000,7 @@ def main() -> int:
     smi = phase_device()
     import torch
 
+    count_graph_launches()
     launches = {}
     timings = {}
     # HiGHS takes its time over the dense LP on the host: a second process
@@ -2981,13 +3041,15 @@ def main() -> int:
     if "jax" in sys.modules or "relp_tpu" in sys.modules:
         raise AssertionError("the smoke run imported JAX or the JAX package")
     if min(launches[name] for name in KERNELS) < 1 or \
-            min(count for counts in PATHS.values() for count in counts.values()) < 1:
+            min(count + REPLAYED.get(path, {}).get(name, 0) for path, counts in PATHS.items()
+                for name, count in counts.items()) < 1:
         raise AssertionError(f"a kernel was not launched on its path: {PATHS}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], **{k: timings[name][k] for k in keys}}
+         "launches": launches[name], "replayed_launches": launches.get(f"{name} replayed", 0),
+         **{k: timings[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

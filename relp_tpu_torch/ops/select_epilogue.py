@@ -16,7 +16,8 @@ that scratch: one per (device, stream), allocated zeroed at first use and
 set back to zero by the kernel that used it, so launches on one stream
 share it in order and launches on two streams never share it.  A launch
 that fails drops its workspace (:func:`drop_workspace`), so the next one
-starts from fresh zeros.  Nothing here synchronises.
+starts from fresh zeros; a CUDA graph keeps the workspace it was captured
+with (:func:`current_workspace`).  Nothing here synchronises.
 """
 
 from __future__ import annotations
@@ -158,6 +159,14 @@ def workspace(dev: torch.device, stream: int, n_counters: int = 1, n_slots: int 
                            up(partial_bytes, 1 << 20))
         _workspaces[key] = ws
     return ws
+
+
+def current_workspace(dev: torch.device, stream: int) -> Workspace | None:
+    """The scratch ``stream`` has now, if any.  A CUDA graph captured on
+    ``stream`` keeps it: its kernels point at it, and a larger workspace
+    may replace it for later launches."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), stream)
+    return _workspaces.get(key)
 
 
 def drop_workspace(dev: torch.device, stream: int) -> None:

@@ -33,24 +33,39 @@ due* that the step returns), one before the first, and one per
 refactorization under ``refactor_mode="polish"`` (its residual check); the
 LU's minimum pivot is judged on the device.
 
+On a CUDA device the host runs an iteration as one replay of a CUDA graph
+of :meth:`DualKernel.step` (:class:`StepGraphs`), captured once per
+operator, set of options and layout of B⁻¹ and replayed for every solve on
+that operator; the refactorizations stay eager between replays.  The CPU
+steps eagerly.  Graphed solves on one device run one at a time, whatever
+thread starts them: an operator's graphs step one static state, and the
+graphs of a device share one capture stream and its pricing scratch.
+
 Spans (utils/metrics.py, on while a profiler records): ``dual.solve`` over
-the whole solve; in it ``dual.refactor``, ``dual.step``, ``dual.read`` (a
-read of the loop's flags: the host waits for the device there) and
-``dual.extract``; in a step ``dual.leaving`` (1.), ``dual.row`` (ρ and α),
-``dual.ratio`` (the candidates and the ratio test) and ``dual.pivot`` (3.).
-The kernel counts its refactorizations and LU rebuilds on the host and
-adds them to the open solve record.
+the whole solve; in it ``dual.capture`` (a step's graph captured),
+``dual.refactor``, ``dual.step``, ``dual.read`` (a read of the loop's flags:
+the host waits for the device there) and ``dual.extract``; in an eager step
+``dual.leaving`` (1.), ``dual.row`` (ρ and α), ``dual.ratio`` (the
+candidates and the ratio test) and ``dual.pivot`` (3.), none of which a
+replay enters.  The kernel counts its refactorizations, LU rebuilds,
+replayed iterations and captures on the host and adds them to the open
+solve record.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import threading
+import weakref
 
 import numpy as np
 import torch
 
 from relp_tpu_torch.ops.amatrix import DenseMatrix
 from relp_tpu_torch.ops.linalg import inverse_residual, lu_inverse, rank_one_basis_update
+from relp_tpu_torch.ops.select_epilogue import current_workspace
 from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.simplex.core import SolveOutput, _at, _nonbasic_values, _put
 from relp_tpu_torch.utils.config import SolverConfig
@@ -134,6 +149,8 @@ class DualKernel:
         self.host_reads = 0
         self.refactorizations = 0
         self.inverse_rebuilds = 0
+        self.graph_steps = 0
+        self.graph_captures = 0
 
     def _read(self, t: torch.Tensor):
         """Bring a small tensor to the host (one synchronisation)."""
@@ -357,6 +374,140 @@ class DualKernel:
             return s_out, self.flags(s_out)
 
 
+# what DualKernel.step reads of its kernel besides the operator and the options
+_STEP_INPUTS = ("lb", "ub", "lb_tot", "ub_tot", "boxed_range", "can_enter", "pos_ids")
+# the fields of DState the step replaces, by dtype (one copy launch a group);
+# B⁻¹ is updated in place and `repairs` passed through.  Copying them back
+# keeps one set of state tensors that a refactorization can write into; two
+# graphs alternating between two states would copy as much, the step's
+# results being new tensors
+_STEP_REPLACES = (("xB", "pi", "d", "beta"),
+                  ("basis", "vstat", "status", "it", "since_refactor", "flips"))
+
+
+def _cloned(s: DState) -> DState:
+    return DState(**{f.name: getattr(s, f.name).clone() for f in dataclasses.fields(DState)})
+
+
+class StepGraph:
+    """:meth:`DualKernel.step` over one fixed loop state :attr:`state`,
+    captured as a CUDA graph.
+
+    The captured body is the step, then the copy of the fields it replaces
+    back into :attr:`state`; :attr:`flags` is the packed flags it returns.
+    The graph holds every tensor its kernels point at that the operator does
+    not: the state, the inputs (its :class:`StepGraphs`), its memory pool,
+    and the scratch of the pricing kernels on the capture stream
+    (:attr:`workspace`), which a larger one may replace for later launches
+    there.
+    """
+
+    def __init__(self, Ks: DualKernel, s: DState):
+        self.state = _cloned(s)  # B⁻¹ keeps its strides
+        with span("dual.capture"):
+            self._capture(Ks)
+
+    def body(self, Ks: DualKernel) -> torch.Tensor:
+        """One step of :attr:`state` in place; returns the flags."""
+        s, flags = Ks.step(self.state)
+        for names in _STEP_REPLACES:
+            torch._foreach_copy_([getattr(self.state, k) for k in names],
+                                 [getattr(s, k) for k in names])
+        return flags
+
+    def _capture(self, Ks: DualKernel) -> None:
+        dev = Ks.dev
+        stream = _capture_stream(dev)
+        with torch.cuda.device(dev):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                # one eager step on this stream first, so that cuBLAS's
+                # workspace and the kernels' scratch of this stream exist
+                # before the capture (the state is stored anew after it)
+                self.body(Ks)
+            self.graph = torch.cuda.CUDAGraph()
+            # another thread's work on the device (its allocations among
+            # it) may go on while this one records
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                self.flags = self.body(Ks)
+            self.workspace = current_workspace(dev, stream.cuda_stream)
+
+    def replay(self) -> torch.Tensor:
+        """One step of :attr:`state` in place; returns the flags."""
+        self.graph.replay()
+        return self.flags
+
+    def store(self, s: DState) -> DState:
+        """Copy the fields of ``s`` that are not already :attr:`state`'s in."""
+        for f in dataclasses.fields(DState):
+            src, dst = getattr(s, f.name), getattr(self.state, f.name)
+            if src is not dst:
+                dst.copy_(src)
+        return self.state
+
+
+class StepGraphs:
+    """The step graphs of one operator under one set of options: the static
+    copies of the inputs the step reads (``_STEP_INPUTS``), which every solve
+    loads anew (:meth:`load`), and one :class:`StepGraph` for each layout of
+    B⁻¹ met, since a graph bakes its operands' strides in: an LU rebuild
+    leaves B⁻¹ column-major, the start and a polish row-major, and a product
+    with B⁻¹ sums in another order in each."""
+
+    def __init__(self, K: DualKernel):
+        self.inputs = {k: getattr(K, k).clone() for k in _STEP_INPUTS}
+        self.by_layout: dict = {}
+
+    def load(self, K: DualKernel) -> DualKernel:
+        """Copy ``K``'s inputs in; returns ``K`` reading the static ones."""
+        Ks = copy.copy(K)
+        for k, t in self.inputs.items():
+            t.copy_(getattr(K, k))
+            setattr(Ks, k, t)
+        return Ks
+
+    def enter(self, K: DualKernel, Ks: DualKernel, s: DState) -> StepGraph:
+        """The graph of ``s.Binv``'s layout (captured at first use, counted
+        in ``K.graph_captures``), with ``s`` stored in its state."""
+        layout = s.Binv.stride()
+        g = self.by_layout.get(layout)
+        if g is None:
+            g = self.by_layout[layout] = StepGraph(Ks, s)
+            K.graph_captures += 1
+        g.store(s)
+        return g
+
+
+# operator -> {what the captured step bakes in: its StepGraphs}; an entry
+# dies with its operator
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_CAPTURE_STREAMS: dict = {}  # device index -> the stream captures on it use
+_LOCKS: dict = {}  # device -> the lock a graphed solve holds there
+
+
+def _capture_stream(dev: torch.device):
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[idx] = torch.cuda.Stream(idx)
+    return _CAPTURE_STREAMS[idx]
+
+
+def _graphable(A) -> bool:
+    """Whether the loop replays a captured step on ``A``: on a CUDA device."""
+    return A.device.type == "cuda"
+
+
+def step_graphs(K: DualKernel) -> StepGraphs:
+    """The :class:`StepGraphs` of ``K``'s operator and options."""
+    cfg = K.cfg
+    key = (K.m, K.n, K.A.dtype, K.dev, cfg.dual_pricing, cfg.dual_ratio, cfg.eps_pivot,
+           cfg.eps_dual, cfg.eps_feas, cfg.refactor_period, K.max_iter)
+    graphs = _GRAPHS.setdefault(K.A, {})
+    if key not in graphs:
+        graphs[key] = StepGraphs(K)
+    return graphs[key]
+
+
 def _tensor(v, dtype, dev):
     """``v`` (numpy or tensor) as a tensor of ``dtype`` on ``dev``; a copy
     whenever it came from numpy."""
@@ -398,6 +549,37 @@ def initial_state(basis0, vstat0, m: int, n: int, cfg: SolverConfig, dev) -> DSt
     )
 
 
+def _loop(K: DualKernel, s: DState, graphs: StepGraphs | None) -> DState:
+    """The host loop from ``s``: one read of the packed flags per iteration,
+    a refactorization whenever they ask for one (the start state does), then
+    an eager step, or with ``graphs`` a replay of the graph of B⁻¹'s layout."""
+    if graphs is not None:
+        Ks = graphs.load(K)
+    flags = K.flags(s)
+    while True:
+        with span("dual.read"):
+            running, refactor_due = K._read(flags)
+        if not running:
+            break
+        if refactor_due:
+            s = K.refactor(s)
+            if graphs is not None:
+                g = graphs.enter(K, Ks, s)
+                s = g.state
+        if graphs is None:
+            s, flags = K.step(s)
+        else:
+            with span("dual.step"):
+                flags = g.replay()
+            K.graph_steps += 1
+    if graphs is not None:
+        # nothing returned is a static tensor; B⁻¹ the closing
+        # refactorization makes anew
+        s = dataclasses.replace(s, **{f.name: getattr(s, f.name).clone()
+                                      for f in dataclasses.fields(DState) if f.name != "Binv"})
+    return s
+
+
 def solve_core_dual(
     A, b, c, lb, ub, basis0, vstat0, cfg: SolverConfig, max_iter: int,
     art_sign0=None, device: DeviceLike = None, final_state: list | None = None,
@@ -417,6 +599,10 @@ def solve_core_dual(
     :class:`DualKernel` with the problem's tensors and the final
     :class:`DState` (after the closing refactorization), what ``check_state``
     takes.
+
+    On a CUDA device the iterations replay a captured step, and solves on
+    one device run one at a time: a solve waits for one that another thread
+    runs there to end.
     """
     with span("dual.solve"):
         A = as_device_operator(A, device)
@@ -427,23 +613,17 @@ def solve_core_dual(
                     else _tensor(art_sign0, F64, dev))
         K = DualKernel(A, b, c, lb, ub, art_sign, cfg, max_iter)
         s = initial_state(basis0, vstat0, m, n, cfg, dev)
-
-        # ---- the host loop: one read of the packed flags per iteration ----
-        flags = K.flags(s)
-        while True:
-            with span("dual.read"):
-                running, refactor_due = K._read(flags)
-            if not running:
-                break
-            if refactor_due:
-                s = K.refactor(s)
-            s, flags = K.step(s)
-
-        s = dataclasses.replace(
-            s, status=torch.where(s.status == st.RUNNING, st.ITERATION_LIMIT, s.status))
-        # clean final refactorization for extraction
-        s = K.refactor(s)
-        count(refactorizations=K.refactorizations, inverse_rebuilds=K.inverse_rebuilds)
+        graphed = _graphable(A)
+        # a graphed solve holds its device's lock from loading the static
+        # inputs to the closing refactorization's read of the static B⁻¹
+        with _LOCKS.setdefault(dev, threading.Lock()) if graphed else contextlib.nullcontext():
+            s = _loop(K, s, step_graphs(K) if graphed else None)
+            s = dataclasses.replace(
+                s, status=torch.where(s.status == st.RUNNING, st.ITERATION_LIMIT, s.status))
+            # clean final refactorization for extraction
+            s = K.refactor(s)
+        count(refactorizations=K.refactorizations, inverse_rebuilds=K.inverse_rebuilds,
+              graph_steps=K.graph_steps, graph_captures=K.graph_captures)
         if final_state is not None:
             final_state.append((K, s))
 

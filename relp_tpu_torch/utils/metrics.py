@@ -113,6 +113,10 @@ class SolveMetrics:
     # rejected or not used)
     refactorizations: int = 0
     inverse_rebuilds: int = 0
+    # the device dual's iterations replayed from a CUDA graph of its step,
+    # and the captures of such a graph the solve paid for (0 on the CPU)
+    graph_steps: int = 0
+    graph_captures: int = 0
     # span name -> (entries, host seconds); empty while no profiler records
     spans: Dict[str, Tuple[int, float]] = field(default_factory=dict)
 
