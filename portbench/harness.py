@@ -1,7 +1,7 @@
 """The harness: finds a cell's files by name, sets the program up, measures
 a closed loop of requests for ``seconds``, optionally profiles a slice of
-further requests, judges every answer against the reference and reads the
-cell's metrics.
+further requests, judges every answer against the reference (solving each
+distinct LP once) and reads the cell's metrics.
 
 Everything that belongs to one configuration, cell, request kind, LP family
 or metric is a file of its own:
@@ -116,9 +116,18 @@ def note(msg: str) -> None:
     print(f"portbench: {msg}", file=sys.stderr, flush=True)
 
 
+def lp_identity(lp) -> tuple:
+    """What makes two LPs one LP to the reference: the same A object, the
+    same bytes of b, c, lb and ub, and the same sense."""
+    return (id(lp.A), lp.maximize) + tuple((v.dtype.str, v.shape, v.tobytes())
+                                           for v in (lp.b, lp.c, lp.lb, lp.ub))
+
+
 def judge(kind, records: List[dict], limits: Dict[str, float], device: str):
     """Every answer against the reference: ``(attempted, failed, worst)``,
-    ``worst`` the largest reading of each measure over the answers."""
+    ``worst`` the largest reading of each measure over the answers.  The
+    reference solves each distinct LP once (``lp_identity``); each answer is
+    read from its own x, y and objective."""
     import torch
 
     from portbench.reference import certificate, ipm
@@ -126,7 +135,8 @@ def judge(kind, records: List[dict], limits: Dict[str, float], device: str):
 
     attempted = failed = 0
     worst = {k: 0.0 for k in MEASURES}
-    ops: dict = {}
+    ops: dict = {}   # id(A): (A, its operator); A is held, so its id stays its own
+    refs: dict = {}  # lp_identity: the reference's solution
     for rec in records:
         for ans in rec["answers"]:
             attempted += 1
@@ -134,18 +144,23 @@ def judge(kind, records: List[dict], limits: Dict[str, float], device: str):
                 failed += 1
                 continue
             lp = kind.lp_of(ans.key)
-            op = ops.get(id(lp.dense))
-            if op is None:
-                op = ops[id(lp.dense)] = Operator(lp, torch.float64, device)
-            ref = ipm.solve(lp, torch.float64, device, op=op)
-            if ref.kkt > limits["reference_kkt"]:
-                raise RuntimeError(f"the reference solve of {lp.name} ended at KKT "
-                                   f"{ref.kkt:.3e} above {limits['reference_kkt']}")
+            held = ops.get(id(lp.A))
+            if held is None:
+                held = ops[id(lp.A)] = (lp.A, Operator(lp, torch.float64, device))
+            op = held[1]
+            key = lp_identity(lp)
+            ref = refs.get(key)
+            if ref is None:
+                ref = refs[key] = ipm.solve(lp, torch.float64, device, op=op)
+                if ref.kkt > limits["reference_kkt"]:
+                    raise RuntimeError(f"the reference solve of {lp.name} ended at KKT "
+                                       f"{ref.kkt:.3e} above {limits['reference_kkt']}")
             got = certificate.measures(lp, op, ans.objective, ans.x, ans.y, ref.objective)
             for k in MEASURES:
                 worst[k] = max(worst[k], got[k])
             if any(not got[k] <= limits[k] for k in MEASURES):
                 failed += 1
+    note(f"the reference solved {len(refs)} distinct LPs")
     return attempted, failed, worst
 
 

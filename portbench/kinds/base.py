@@ -62,7 +62,8 @@ class Kind:
 
 
 def general_form(lp: LP):
-    """``lp`` as the program's ``GeneralForm`` (equality rows, its names)."""
+    """``lp`` as the program's ``GeneralForm`` (equality rows, its names); a
+    sparse A goes over as it is, without being made dense."""
     import scipy.sparse as sp
 
     from relp_tpu_torch.model.elements import Objective, RangedConstraintRelation
@@ -70,7 +71,7 @@ def general_form(lp: LP):
 
     return GeneralForm(
         objective=Objective.MAXIMIZE if lp.maximize else Objective.MINIMIZE,
-        A=sp.csc_matrix(lp.dense),
+        A=sp.csc_matrix(lp.A),
         constraint_types=[RangedConstraintRelation.equal()] * lp.m,
         b=lp.b,
         variables=[Variable(nm, cost=float(lp.c[j]), lower=float(lp.lb[j]), upper=float(lp.ub[j]))
