@@ -581,15 +581,13 @@ def _operator(general, dev, expect):
     lowered and padded as the driver does)."""
     from relp_tpu_torch.model.computational_form import build_computational_form
     from relp_tpu_torch.presolve.engine import presolve
-    from relp_tpu_torch.simplex.driver import _device_matrix, _round_up
+    from relp_tpu_torch.simplex.driver import device_problem
     from relp_tpu_torch.utils.config import DEFAULT_CONFIG
 
     presolve(general)
-    cf = build_computational_form(general, scale=True)
-    m_pad, n_pad = _round_up(cf.m, 8), _round_up(cf.n, 128)
-    op, fmt = _device_matrix(cf, m_pad, n_pad, DEFAULT_CONFIG, dev)
-    if fmt != expect:
-        raise AssertionError(f"[kernels] operator is {fmt}, expected {expect}")
+    op = device_problem(build_computational_form(general, scale=True), DEFAULT_CONFIG, dev).A
+    if op.format != expect:
+        raise AssertionError(f"[kernels] operator is {op.format}, expected {expect}")
     return op
 
 
@@ -1732,7 +1730,7 @@ def phase_dual(smi, launches, highs, milp_ref):
     presolve(general)
     p = driver._Padded.of(build_computational_form(general, scale=True), DEFAULT_CONFIG,
                           torch.device("cuda"))
-    A = p.device_A()[0]
+    A = p.device_A()
     b_t, c_t, lb_t, ub_t = (torch.as_tensor(v, device=p.dev) for v in (p.b, p.c, p.lb, p.ub))
     prior = solve_core(A, b_t, c_t, lb_t, ub_t, DEFAULT_CONFIG, p.max_iter)
     x = prior.x.cpu().numpy()
@@ -1900,7 +1898,7 @@ def phase_analysis(smi):
         b2 = padded.b.copy()
         for i, delta in db.items():
             b2[i] += cf.row_scale[i] * delta
-        out = reoptimize_with_bounds(padded.device_A()[0], b2, padded.c, padded.lb, padded.ub,
+        out = reoptimize_with_bounds(padded.device_A(), b2, padded.c, padded.lb, padded.ub,
                                      prior, DEFAULT_CONFIG, padded.max_iter)
         if int(out.status) != st.OPTIMAL:
             raise AssertionError(f"[analysis] re-solve {db}: status {int(out.status)}")

@@ -72,6 +72,8 @@ class DenseMatrix:
     """Dense padded A (f64, row-major) with an optional f32 shadow for
     pricing."""
 
+    format = "dense"  # the operator's ``matrix_format``, as solve records name it
+
     def __init__(self, A: torch.Tensor, A32: torch.Tensor | None = None):
         self.A = A.contiguous()
         self.A32 = None if A32 is None else A32.contiguous()
@@ -235,6 +237,8 @@ class EllMatrix:
     ``rdata_t[Kr, m]`` / ``rcols_t[Kr, m]`` (padded with (column 0, value 0))
     so A·x is a gather like pricing.  ``data32_t`` is the f32 shadow."""
 
+    format = "ell"
+
     def __init__(self, data_t, rows_t, m: int, rdata_t, rcols_t, data32_t=None):
         K, n = data_t.shape
         if rows_t.shape != (K, n) or rdata_t.shape[1] != m or rcols_t.shape != rdata_t.shape:
@@ -353,6 +357,8 @@ class HybridMatrix:
     columns), ``spill_pos[n_pad]`` maps column → slot or -1.  The dense
     block prices through ``dense_price``; its other products are plain
     ``torch.matmul``, as they are plain XLA products in the JAX package."""
+
+    format = "hybrid"
 
     def __init__(self, ell: EllMatrix, D, spill_idx, spill_pos, D32=None):
         self.ell = ell

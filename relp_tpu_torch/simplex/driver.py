@@ -8,7 +8,9 @@ the cold, slack-crash, basis-file or caller's warm start in one call (no
 chunking: the card has no execution watchdog), and the result is unscaled
 into a named ``Solution``.  With ``perturb`` the core first solves against
 seeded expanded bounds (``_perturbed_bounds``) and then against the true
-bounds, warm-started from the perturbed optimum.
+bounds, warm-started from the perturbed optimum.  ``device_problem`` gives
+a form padded and on the device with that operator, as a re-solve
+(``reoptimize_with_bounds``) takes it.
 
 ``algorithm="dual"`` (without a warm start or perturbation) first runs the
 dual simplex from the all-artificial basis (``_run_dual`` over
@@ -118,20 +120,21 @@ def _matrix_format(csc, m_pad: int, config: SolverConfig):
 
 def _device_matrix(cf: ComputationalForm, m_pad: int, n_pad: int,
                    config: SolverConfig, device: torch.device):
-    """Choose (:func:`_matrix_format`) and build the device operator of A;
-    ELL pads carry the true per-column / per-row maxima."""
+    """Choose (:func:`_matrix_format`) and build the device operator of A
+    (its ``format`` names it); ELL pads carry the true per-column / per-row
+    maxima."""
     csc = sp.csc_matrix(cf.A)
     fmt, counts, spill_thresh, n_spill = _matrix_format(csc, m_pad, config)
     if fmt == "hybrid":
         sparse_counts = counts[counts <= spill_thresh]
         k_sparse = int(sparse_counts.max()) if sparse_counts.size else 1
         return hybrid_from_csc(csc, m_pad, n_pad, max(k_sparse, 1),
-                               max(n_spill, 1), device=device), "hybrid"
+                               max(n_spill, 1), device=device)
     if fmt == "ell":
-        return ell_from_csc(csc, m_pad, n_pad, device=device), "ell"
+        return ell_from_csc(csc, m_pad, n_pad, device=device)
     A = np.zeros((m_pad, n_pad), dtype=np.float64)
     A[: cf.m, : cf.n] = csc.toarray()
-    return DenseMatrix(torch.from_numpy(A).to(device)), "dense"
+    return DenseMatrix(torch.from_numpy(A).to(device))
 
 
 def _perturbed_bounds(lb, ub, perturb: float):
@@ -191,7 +194,7 @@ class _Padded:
     host_reads: int = 0
     dual_flips: int = 0        # bound flips of the dual engines' runs (host LU and device)
     _a_pad: Optional[sp.csc_matrix] = None
-    _device_A: Optional[tuple] = None
+    _device_A: Optional[object] = None
     _primal_A: Optional[object] = None
 
     @classmethod
@@ -221,7 +224,7 @@ class _Padded:
         return self._a_pad
 
     def device_A(self):
-        """``(operator, format)`` of cf.A on the device, built once."""
+        """The operator of cf.A on the device, built once."""
         if self._device_A is None:
             self._device_A = _device_matrix(self.cf, self.m_pad, self.n_pad,
                                             self.config, self.dev)
@@ -231,7 +234,7 @@ class _Padded:
         """The primal engine's operator: ``device_A``'s, column-sharded over
         ``shard_to`` when config.mesh_cols asked for a mesh that shards."""
         if self._primal_A is None:
-            A = self.device_A()[0]
+            A = self.device_A()
             if self.shard_to is not None:
                 from relp_tpu_torch.parallel.sharded import shard_operator
 
@@ -352,8 +355,9 @@ def _pdlp_operator(p: _Padded, d_r, d_c, csc_s):
         ub_h = np.where(np.isfinite(p.ub), p.ub / d_c, p.ub)
     vecs = [p.b * d_r, p.c * d_c, lb_h, ub_h]
     if p.config.pdlp_matrix != "bricks" or p.shard_to is not None:
-        A_s, fmt = _device_matrix(SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), p.m_pad, p.n_pad,
-                                  p.config, p.dev)
+        A_s = _device_matrix(SimpleNamespace(A=csc_s, m=cf.m, n=cf.n), p.m_pad, p.n_pad,
+                             p.config, p.dev)
+        fmt = A_s.format
         if p.shard_to is not None:
             from relp_tpu_torch.parallel.sharded import shard_operator
 
@@ -903,7 +907,7 @@ def _run_dual(p: _Padded, fo: dict):
         if out is None and cfg.xl_engine == "lu":
             return None
     if out is None:
-        out = solve_core_dual(p.device_A()[0], p.b, p.c, lb_d, ub_d, cfg=cfg,
+        out = solve_core_dual(p.device_A(), p.b, p.c, lb_d, ub_d, cfg=cfg,
                               max_iter=p.max_iter, **warm)
         p.iterations += int(out.it)
         p.host_reads += out.host_reads
@@ -1197,7 +1201,7 @@ def solve_computational_form(
         rec, status=kind.value, iterations=p.iterations, wall_s=t.elapsed, m=m, n=n,
         m_padded=m_pad, n_padded=n_pad, art_residual=float(out.art_inf),
         phase=int(out.phase), nnz=int(p.A_csc.nnz),
-        matrix_format=(p.device_A()[1] if p._device_A is not None
+        matrix_format=(p.device_A().format if p._device_A is not None
                        and not engine.endswith("dual-lu") else fo["matrix_format"]),
         device=str(dev), engine=engine, lu_engine=fo.get("lu_engine", ""),
         host_reads=p.host_reads, bound_flips=p.dual_flips,
@@ -1238,6 +1242,36 @@ def solve_computational_form(
         result.objective = cf.objective_of(x[:n])
         result.x_structural = cf.structural_values(x[:n])
     return result
+
+
+@dataclass
+class DeviceProblem:
+    """A computational form padded and on the device as
+    ``solve_computational_form`` pads it: the f64 vectors, the operator that
+    ``matrix_format`` picks (``A.format`` its name) and the iteration budget."""
+
+    A: object
+    b: torch.Tensor
+    c: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+    m_pad: int
+    n_pad: int
+    max_iter: int
+
+
+def device_problem(cf: ComputationalForm, config: SolverConfig = DEFAULT_CONFIG,
+                   device: DeviceLike = None) -> DeviceProblem:
+    """``cf`` padded, with the operator its engines solve on (``_Padded``'s
+    padding and ``_device_matrix``'s format rule): what
+    ``reoptimize_with_bounds`` takes to re-solve ``cf`` under moved bounds,
+    warm from the basis of a ``solve_computational_form`` of it."""
+    p = _Padded.of(cf, config, resolve_device(device))
+    A = p.device_A()
+    b, c, lb, ub = (torch.as_tensor(v, dtype=torch.float64, device=A.device)
+                    for v in (p.b, p.c, p.lb, p.ub))
+    return DeviceProblem(A=A, b=b, c=c, lb=lb, ub=ub, m_pad=p.m_pad,
+                         n_pad=p.n_pad, max_iter=p.max_iter)
 
 
 def _solve_trivial(cf: ComputationalForm) -> SimplexResult:

@@ -623,7 +623,8 @@ def solve_core_dual(
             # clean final refactorization for extraction
             s = K.refactor(s)
         count(refactorizations=K.refactorizations, inverse_rebuilds=K.inverse_rebuilds,
-              graph_steps=K.graph_steps, graph_captures=K.graph_captures)
+              graph_steps=K.graph_steps, graph_captures=K.graph_captures,
+              inverse_bytes=m * m * F64.itemsize)
         if final_state is not None:
             final_state.append((K, s))
 

@@ -38,7 +38,8 @@ def reoptimize_with_bounds(
     an operator of ops/amatrix.py, a tensor or a numpy matrix; the vectors
     are numpy arrays or tensors.  The solve runs on ``A``'s device when it
     has one, else on ``device``.  Emits one ``SolveMetrics`` record (call
-    ``"reoptimize"``)."""
+    ``"reoptimize"``), which names the operator's ``matrix_format``.
+    ``driver.device_problem`` gives a solved form's arrays and operator."""
     with recording("reoptimize") as rec, Timer() as t, span("reoptimize"):
         with span("reoptimize.prepare"):
             A = as_device_operator(A, device)
@@ -52,6 +53,7 @@ def reoptimize_with_bounds(
             vstat0 = _repair_statuses(prior.vstat.to(dev)[:n], new_lb, new_ub)
             art_sign0 = prior.art_sign.to(dev)
         rec.m_padded, rec.n_padded, rec.device = m, n, str(dev)
+        rec.matrix_format = getattr(A, "format", "")
 
         out = solve_core_dual(A, b, c, new_lb, new_ub, basis0, vstat0, config, max_iter,
                               art_sign0=art_sign0)

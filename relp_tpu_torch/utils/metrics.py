@@ -117,6 +117,9 @@ class SolveMetrics:
     # and the captures of such a graph the solve paid for (0 on the CPU)
     graph_steps: int = 0
     graph_captures: int = 0
+    # bytes of the explicit B⁻¹ the device dual held (m_padded² · 8; 0 where
+    # it did not run)
+    inverse_bytes: int = 0
     # span name -> (entries, host seconds); empty while no profiler records
     spans: Dict[str, Tuple[int, float]] = field(default_factory=dict)
 

@@ -361,7 +361,7 @@ def _dual_start_of(general, dev, **opts):
     cfg = SolverConfig(algorithm="dual", matrix_format="ell", refactor_mode="full", **opts)
     p = driver._Padded.of(cf, cfg, dev)
     lb_d, ub_d, warm, _, _ = driver._dual_start(p)
-    A = p.device_A()[0]
+    A = p.device_A()
     vec = [torch.tensor(v, dtype=torch.float64, device=dev)
            for v in (p.b, p.c, lb_d, ub_d, warm["art_sign0"])]
     K = DualKernel(A, *vec, cfg, 10_000)

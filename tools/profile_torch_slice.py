@@ -224,7 +224,7 @@ def count_dual_ops(args) -> list[str]:
     for opts in DUAL_OPTIONS:
         Count.n = 0
         with Count():
-            out = solve_core_dual(p.device_A()[0], p.b, p.c, lb_d, ub_d,
+            out = solve_core_dual(p.device_A(), p.b, p.c, lb_d, ub_d,
                                   cfg=SolverConfig(algorithm="dual", **opts),
                                   max_iter=args.iters, **warm)
         lines.append(f"[ops] dual {opts} on the CPU, max-flow N={args.nodes} (padded {p.m_pad}x"
@@ -246,7 +246,8 @@ def profile_dual(args, smi) -> list[str]:
 
     p, lb_d, ub_d, warm = _dual_problem(args.nodes, torch.device("cuda"))
     cf = p.cf
-    A, fmt = p.device_A()
+    A = p.device_A()
+    fmt = A.format
     lines = [f"[profile] dual simplex, max-flow N={args.nodes}: m={cf.m} n={cf.n} (padded "
              f"{p.m_pad}x{p.n_pad}) format {fmt}, first {args.iters} iterations [{smi}]"]
     for opts in DUAL_OPTIONS:
