@@ -33,6 +33,16 @@ due* that the step returns), one before the first, and one per
 refactorization under ``refactor_mode="polish"`` (its residual check); the
 LU's minimum pivot is judged on the device.
 
+A warm re-solve (``keep_start``, which ``reoptimize_with_bounds`` asks for)
+starts from the B⁻¹ that the last warm start on the same operator made, when
+it starts from the same basis and artificial signs under the same
+``refactor_mode`` and ``singular_tol`` (:class:`StartInverse`, one kept per
+operator, dying with it): the first
+refactorization then installs it (:meth:`DualKernel.start`), with no
+polish, LU or residual read.  Whether the start matches rides on the read
+before the first iteration; on a miss, whether the basis the start
+refactorized was sound rides on the next, and a sound start's B⁻¹ is kept.
+
 On a CUDA device the host runs an iteration as one replay of a CUDA graph
 of :meth:`DualKernel.step` (:class:`StepGraphs`), captured once per
 operator, set of options and layout of B⁻¹ and replayed for every solve on
@@ -43,13 +53,14 @@ graphs of a device share one capture stream and its pricing scratch.
 
 Spans (utils/metrics.py, on while a profiler records): ``dual.solve`` over
 the whole solve; in it ``dual.capture`` (a step's graph captured),
-``dual.refactor``, ``dual.step``, ``dual.read`` (a read of the loop's flags:
+``dual.refactor``, ``dual.start`` (a kept start inverse installed),
+``dual.step``, ``dual.read`` (a read of the loop's flags:
 the host waits for the device there) and ``dual.extract``; in an eager step
 ``dual.leaving`` (1.), ``dual.row`` (ρ and α), ``dual.ratio`` (the
 candidates and the ratio test) and ``dual.pivot`` (3.), none of which a
 replay enters.  The kernel counts its refactorizations, LU rebuilds,
-replayed iterations and captures on the host and adds them to the open
-solve record.
+kept start inverses taken, replayed iterations and captures on the host and
+adds them to the open solve record.
 """
 
 from __future__ import annotations
@@ -149,6 +160,7 @@ class DualKernel:
         self.host_reads = 0
         self.refactorizations = 0
         self.inverse_rebuilds = 0
+        self.start_inverse_hits = 0
         self.graph_steps = 0
         self.graph_captures = 0
 
@@ -184,11 +196,21 @@ class DualKernel:
                 Binv, min_piv = lu_inverse(B)
                 # NaN-safe (NaN >= tol is False): a singular basis ends the solve
                 status = torch.where(min_piv >= cfg.singular_tol, status, st.NUMERICAL)
-            xB, pi, d, beta = _derived_state(
-                self.A, self.b, self.c, self.lb_tot, self.ub_tot, s.basis, s.vstat, Binv)
-            return dataclasses.replace(
-                s, Binv=Binv, xB=xB, pi=pi, d=d, beta=beta, status=status,
-                since_refactor=torch.zeros_like(s.since_refactor))
+            return self._with_inverse(s, Binv, status)
+
+    def start(self, s: DState, Binv: torch.Tensor) -> DState:
+        """The start state ``s`` on a kept start inverse ``Binv`` of its
+        basis: what :meth:`refactor` gives from it, without rebuilding it."""
+        with span("dual.start"):
+            self.start_inverse_hits += 1
+            return self._with_inverse(s, Binv, s.status)
+
+    def _with_inverse(self, s: DState, Binv: torch.Tensor, status) -> DState:
+        xB, pi, d, beta = _derived_state(
+            self.A, self.b, self.c, self.lb_tot, self.ub_tot, s.basis, s.vstat, Binv)
+        return dataclasses.replace(
+            s, Binv=Binv, xB=xB, pi=pi, d=d, beta=beta, status=status,
+            since_refactor=torch.zeros_like(s.since_refactor))
 
     # ---- the two bound-flipping ratio tests ----
     def _ratio_bisect(self, cand, ratio, cap, abs_alpha, viol_r):
@@ -485,6 +507,83 @@ _CAPTURE_STREAMS: dict = {}  # device index -> the stream captures on it use
 _LOCKS: dict = {}  # device -> the lock a graphed solve holds there
 
 
+@dataclasses.dataclass(frozen=True)
+class StartInverse:
+    """The B⁻¹ that a warm start's refactorization made, kept for the next
+    warm start on the same operator: the start's ``basis`` and ``art_sign``,
+    the ``refactor_mode`` and ``singular_tol`` it ran under, and ``Binv`` as
+    the refactorization left it, strides included (they pick the step's
+    graph).  Nothing writes ``Binv`` once it is kept."""
+
+    basis: torch.Tensor
+    art_sign: torch.Tensor
+    refactor_mode: str
+    singular_tol: float
+    Binv: torch.Tensor
+
+
+# operator -> the StartInverse of the last sound warm start on it; an entry
+# dies with its operator
+_STARTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_STARTS_LOCK = threading.Lock()
+
+
+class _WarmStart:
+    """One warm solve's use of :data:`_STARTS`, asked at the reads the loop
+    makes anyway: at the first, whether the start state matches its
+    operator's kept start inverse (a hit installs it in place of the start's
+    refactorization); after a miss's refactorization, whether the basis was
+    sound (its B⁻¹ then replaces the kept one)."""
+
+    def __init__(self, K: DualKernel, s: DState, graphed: bool):
+        self.K, self.graphed = K, graphed
+        with _STARTS_LOCK:
+            kept = _STARTS.get(K.A)
+        if kept is not None and (kept.refactor_mode, kept.singular_tol) != (
+                K.cfg.refactor_mode, K.cfg.singular_tol):
+            kept = None
+        self.kept = kept
+        self.question = None if kept is None else (
+            (s.basis == kept.basis).all() & (K.art_sign == kept.art_sign).all()).reshape(1)
+        self.hit = self.started = False
+        self.made = None
+
+    def ask(self, flags: torch.Tensor) -> torch.Tensor:
+        """``flags`` with the open question, if any, appended."""
+        if self.question is None:
+            return flags
+        flags, self.question = torch.cat([flags, self.question]), None
+        return flags
+
+    def told(self, yes: bool) -> None:
+        """The answer to the question :meth:`ask` appended: before the start,
+        whether it hits; after a miss's refactorization, whether its basis
+        was sound (the B⁻¹ it made is then kept)."""
+        if self.made is None:
+            self.hit = yes
+        elif yes:
+            with _STARTS_LOCK:
+                _STARTS[self.K.A] = self.made
+
+    def refactor(self, s: DState) -> DState:
+        """The start's refactorization (a hit: the kept B⁻¹ installed), then
+        :meth:`DualKernel.refactor`."""
+        K = self.K
+        if self.started:
+            return K.refactor(s)
+        self.started = True
+        # an eager step updates B⁻¹ in place; a graph copies it into its state
+        if self.hit:
+            return K.start(s, self.kept.Binv if self.graphed else self.kept.Binv.clone())
+        s = K.refactor(s)
+        self.made = StartInverse(s.basis, K.art_sign.clone(), K.cfg.refactor_mode,
+                                 K.cfg.singular_tol,
+                                 s.Binv if self.graphed else s.Binv.clone())
+        # the start state is RUNNING: NUMERICAL now means a singular basis
+        self.question = (s.status != st.NUMERICAL).reshape(1)
+        return s
+
+
 def _capture_stream(dev: torch.device):
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _CAPTURE_STREAMS:
@@ -549,20 +648,25 @@ def initial_state(basis0, vstat0, m: int, n: int, cfg: SolverConfig, dev) -> DSt
     )
 
 
-def _loop(K: DualKernel, s: DState, graphs: StepGraphs | None) -> DState:
+def _loop(K: DualKernel, s: DState, graphs: StepGraphs | None,
+          warm: _WarmStart | None = None) -> DState:
     """The host loop from ``s``: one read of the packed flags per iteration,
-    a refactorization whenever they ask for one (the start state does), then
-    an eager step, or with ``graphs`` a replay of the graph of B⁻¹'s layout."""
+    a refactorization whenever they ask for one (the start state does; with
+    ``warm``, the start's goes through it), then an eager step, or with
+    ``graphs`` a replay of the graph of B⁻¹'s layout."""
     if graphs is not None:
         Ks = graphs.load(K)
+    refactor = K.refactor if warm is None else warm.refactor
     flags = K.flags(s)
     while True:
         with span("dual.read"):
-            running, refactor_due = K._read(flags)
+            running, refactor_due, *told = K._read(flags if warm is None else warm.ask(flags))
+        if told:
+            warm.told(told[0])
         if not running:
             break
         if refactor_due:
-            s = K.refactor(s)
+            s = refactor(s)
             if graphs is not None:
                 g = graphs.enter(K, Ks, s)
                 s = g.state
@@ -583,6 +687,7 @@ def _loop(K: DualKernel, s: DState, graphs: StepGraphs | None) -> DState:
 def solve_core_dual(
     A, b, c, lb, ub, basis0, vstat0, cfg: SolverConfig, max_iter: int,
     art_sign0=None, device: DeviceLike = None, final_state: list | None = None,
+    keep_start: bool = False,
 ) -> SolveOutput:
     """Dual simplex from a dual-feasible warm basis (padded arrays as in
     ``solve_core``; numpy arrays or tensors, ``A`` an operator, a tensor or a
@@ -598,7 +703,10 @@ def solve_core_dual(
     those rows.  ``final_state``, a list, receives ``(kernel, state)``: the
     :class:`DualKernel` with the problem's tensors and the final
     :class:`DState` (after the closing refactorization), what ``check_state``
-    takes.
+    takes.  ``keep_start`` (warm re-solves, ``reoptimize_with_bounds``):
+    start from the B⁻¹ kept for this start on ``A`` if there is one, else
+    keep the one the start makes (:class:`StartInverse`, one per operator:
+    an m² copy that lives as long as ``A``).
 
     On a CUDA device the iterations replay a captured step, and solves on
     one device run one at a time: a solve waits for one that another thread
@@ -616,14 +724,17 @@ def solve_core_dual(
         graphed = _graphable(A)
         # a graphed solve holds its device's lock from loading the static
         # inputs to the closing refactorization's read of the static B⁻¹
+        # (the store of start inverses is read and filled inside it)
         with _LOCKS.setdefault(dev, threading.Lock()) if graphed else contextlib.nullcontext():
-            s = _loop(K, s, step_graphs(K) if graphed else None)
+            warm = _WarmStart(K, s, graphed) if keep_start else None
+            s = _loop(K, s, step_graphs(K) if graphed else None, warm)
             s = dataclasses.replace(
                 s, status=torch.where(s.status == st.RUNNING, st.ITERATION_LIMIT, s.status))
             # clean final refactorization for extraction
             s = K.refactor(s)
         count(refactorizations=K.refactorizations, inverse_rebuilds=K.inverse_rebuilds,
-              graph_steps=K.graph_steps, graph_captures=K.graph_captures,
+              start_inverse_hits=K.start_inverse_hits, graph_steps=K.graph_steps,
+              graph_captures=K.graph_captures,
               inverse_bytes=m * m * F64.itemsize)
         if final_state is not None:
             final_state.append((K, s))

@@ -56,7 +56,7 @@ def reoptimize_with_bounds(
         rec.matrix_format = getattr(A, "format", "")
 
         out = solve_core_dual(A, b, c, new_lb, new_ub, basis0, vstat0, config, max_iter,
-                              art_sign0=art_sign0)
+                              art_sign0=art_sign0, keep_start=True)
         status = _tally(rec, out)
         rec.engine = "dual"
         if status != st.OPTIMAL:

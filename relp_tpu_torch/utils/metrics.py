@@ -113,6 +113,10 @@ class SolveMetrics:
     # rejected or not used)
     refactorizations: int = 0
     inverse_rebuilds: int = 0
+    # 1 where a warm re-solve started from the B⁻¹ kept from the last start
+    # on its operator (simplex/dual.py::StartInverse), which then counts in
+    # neither of the two above
+    start_inverse_hits: int = 0
     # the device dual's iterations replayed from a CUDA graph of its step,
     # and the captures of such a graph the solve paid for (0 on the CPU)
     graph_steps: int = 0
