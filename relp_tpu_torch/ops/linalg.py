@@ -23,11 +23,14 @@ def lu_inverse(B: torch.Tensor):
     B is (numerically) singular and the caller repairs the basis.  Nothing is
     read back to the host here; a singular B gives a non-finite inverse
     that the caller must not use.
+
+    The inverse is row-major (``lu_solve``'s column-major result copied), as
+    every B⁻¹ of the port is: the dual's captured step bakes strides in.
     """
     LU, piv, _ = torch.linalg.lu_factor_ex(B)
     min_piv = LU.diagonal(dim1=-2, dim2=-1).abs().amin(-1)
     eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
-    return torch.linalg.lu_solve(LU, piv, eye.expand_as(B)), min_piv
+    return torch.linalg.lu_solve(LU, piv, eye.expand_as(B)).contiguous(), min_piv
 
 
 def inverse_residual(B: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

@@ -33,23 +33,20 @@ due* that the step returns), one before the first, and one per
 refactorization under ``refactor_mode="polish"`` (its residual check); the
 LU's minimum pivot is judged on the device.
 
-A warm re-solve (``keep_start``, which ``reoptimize_with_bounds`` asks for)
-starts from the B⁻¹ that the last warm start on the same operator made, when
-it starts from the same basis and artificial signs under the same
-``refactor_mode`` and ``singular_tol`` (:class:`StartInverse`, one kept per
-operator, dying with it): the first
-refactorization then installs it (:meth:`DualKernel.start`), with no
-polish, LU or residual read.  Whether the start matches rides on the read
-before the first iteration; on a miss, whether the basis the start
-refactorized was sound rides on the next, and a sound start's B⁻¹ is kept.
-
-On a CUDA device the host runs an iteration as one replay of a CUDA graph
-of :meth:`DualKernel.step` (:class:`StepGraphs`), captured once per
-operator, set of options and layout of B⁻¹ and replayed for every solve on
-that operator; the refactorizations stay eager between replays.  The CPU
-steps eagerly.  Graphed solves on one device run one at a time, whatever
-thread starts them: an operator's graphs step one static state, and the
-graphs of a device share one capture stream and its pricing scratch.
+What an operator keeps across solves is one record (:class:`Kept`), dying
+with it: one :class:`StepGraph` per set of options (on a CUDA device) and
+one :class:`StartInverse` (after a warm re-solve, ``keep_start``, which
+``reoptimize_with_bounds`` asks for).  On a CUDA device an iteration is one
+replay of the graph of :meth:`DualKernel.step`, captured at the first
+refactorization of the first solve; every B⁻¹ is row-major, so one graph
+serves every refactorization.  The CPU steps eagerly.  A warm re-solve from
+the kept start's basis and artificial signs, under its ``refactor_mode`` and
+``singular_tol``, installs its B⁻¹ (:meth:`DualKernel.start`) in place of
+the start's refactorization; whether it matches rides on the read before
+the first iteration, and a miss's basis, if sound, is kept at the next.
+Graphed solves on one device run one at a time, whatever thread starts
+them: a graph steps one static state, and the graphs of a device share one
+capture stream and its pricing scratch.
 
 Spans (utils/metrics.py, on while a profiler records): ``dual.solve`` over
 the whole solve; in it ``dual.capture`` (a step's graph captured),
@@ -412,22 +409,44 @@ def _cloned(s: DState) -> DState:
 
 
 class StepGraph:
-    """:meth:`DualKernel.step` over one fixed loop state :attr:`state`,
-    captured as a CUDA graph.
-
-    The captured body is the step, then the copy of the fields it replaces
-    back into :attr:`state`; :attr:`flags` is the packed flags it returns.
-    The graph holds every tensor its kernels point at that the operator does
-    not: the state, the inputs (its :class:`StepGraphs`), its memory pool,
-    and the scratch of the pricing kernels on the capture stream
-    (:attr:`workspace`), which a larger one may replace for later launches
-    there.
+    """:meth:`DualKernel.step` of one operator under one set of options,
+    captured as a CUDA graph over static copies of the inputs it reads
+    (``_STEP_INPUTS``, which every solve loads anew: :meth:`load`) and of
+    the loop state (:attr:`state`, which every refactorization is stored
+    into, the first capturing the graph: :meth:`enter`).  The captured body
+    is the step, then the copy of the fields it replaces back into
+    :attr:`state`; :attr:`flags` is the packed flags it returns.  The graph
+    holds every tensor its kernels point at that the operator does not:
+    these, its memory pool and the capture stream's pricing scratch
+    (:attr:`workspace`), which a larger one may replace for later launches.
     """
 
-    def __init__(self, Ks: DualKernel, s: DState):
-        self.state = _cloned(s)  # B⁻¹ keeps its strides
-        with span("dual.capture"):
-            self._capture(Ks)
+    def __init__(self, K: DualKernel):
+        self.inputs = {k: getattr(K, k).clone() for k in _STEP_INPUTS}
+        self.state: DState | None = None
+
+    def load(self, K: DualKernel) -> DualKernel:
+        """Copy ``K``'s inputs in; returns ``K`` reading the static ones
+        (``K`` itself, which a solve may hand out, never reads them)."""
+        Ks = copy.copy(K)
+        for k, t in self.inputs.items():
+            t.copy_(getattr(K, k))
+            setattr(Ks, k, t)
+        return Ks
+
+    def enter(self, K: DualKernel, Ks: DualKernel, s: DState) -> DState:
+        """``s`` stored in :attr:`state`, the graph captured first if it is
+        not yet (counted in ``K.graph_captures``); returns :attr:`state`."""
+        if self.state is None:
+            self.state = _cloned(s)
+            try:
+                with span("dual.capture"):
+                    self._capture(Ks)
+            except BaseException:
+                self.state = None  # the next solve captures anew
+                raise
+            K.graph_captures += 1
+        return self.store(s)
 
     def body(self, Ks: DualKernel) -> torch.Tensor:
         """One step of :attr:`state` in place; returns the flags."""
@@ -468,52 +487,12 @@ class StepGraph:
         return self.state
 
 
-class StepGraphs:
-    """The step graphs of one operator under one set of options: the static
-    copies of the inputs the step reads (``_STEP_INPUTS``), which every solve
-    loads anew (:meth:`load`), and one :class:`StepGraph` for each layout of
-    B⁻¹ met, since a graph bakes its operands' strides in: an LU rebuild
-    leaves B⁻¹ column-major, the start and a polish row-major, and a product
-    with B⁻¹ sums in another order in each."""
-
-    def __init__(self, K: DualKernel):
-        self.inputs = {k: getattr(K, k).clone() for k in _STEP_INPUTS}
-        self.by_layout: dict = {}
-
-    def load(self, K: DualKernel) -> DualKernel:
-        """Copy ``K``'s inputs in; returns ``K`` reading the static ones."""
-        Ks = copy.copy(K)
-        for k, t in self.inputs.items():
-            t.copy_(getattr(K, k))
-            setattr(Ks, k, t)
-        return Ks
-
-    def enter(self, K: DualKernel, Ks: DualKernel, s: DState) -> StepGraph:
-        """The graph of ``s.Binv``'s layout (captured at first use, counted
-        in ``K.graph_captures``), with ``s`` stored in its state."""
-        layout = s.Binv.stride()
-        g = self.by_layout.get(layout)
-        if g is None:
-            g = self.by_layout[layout] = StepGraph(Ks, s)
-            K.graph_captures += 1
-        g.store(s)
-        return g
-
-
-# operator -> {what the captured step bakes in: its StepGraphs}; an entry
-# dies with its operator
-_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_CAPTURE_STREAMS: dict = {}  # device index -> the stream captures on it use
-_LOCKS: dict = {}  # device -> the lock a graphed solve holds there
-
-
 @dataclasses.dataclass(frozen=True)
 class StartInverse:
     """The B⁻¹ that a warm start's refactorization made, kept for the next
     warm start on the same operator: the start's ``basis`` and ``art_sign``,
     the ``refactor_mode`` and ``singular_tol`` it ran under, and ``Binv`` as
-    the refactorization left it, strides included (they pick the step's
-    graph).  Nothing writes ``Binv`` once it is kept."""
+    the refactorization left it.  Nothing writes ``Binv`` once it is kept."""
 
     basis: torch.Tensor
     art_sign: torch.Tensor
@@ -522,23 +501,36 @@ class StartInverse:
     Binv: torch.Tensor
 
 
-# operator -> the StartInverse of the last sound warm start on it; an entry
-# dies with its operator
-_STARTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_STARTS_LOCK = threading.Lock()
+@dataclasses.dataclass
+class Kept:
+    """What one operator keeps across solves: the :class:`StepGraph` of
+    each set of options its graphed solves ran under (:func:`step_graph`),
+    and the :class:`StartInverse` of the last sound warm start on it, or
+    ``None`` (:class:`_WarmStart`)."""
+
+    graphs: dict = dataclasses.field(default_factory=dict)
+    start: StartInverse | None = None
+
+
+# operator -> its Kept, dying with it.  The one rule: _KEPT and the records
+# in it are read and written only under _KEPT_LOCK, held for nothing else
+_KEPT: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_KEPT_LOCK = threading.Lock()
+_CAPTURE_STREAMS: dict = {}  # device index -> the stream captures on it use
+_LOCKS: dict = {}  # device -> the lock a graphed solve holds there
 
 
 class _WarmStart:
-    """One warm solve's use of :data:`_STARTS`, asked at the reads the loop
-    makes anyway: at the first, whether the start state matches its
-    operator's kept start inverse (a hit installs it in place of the start's
-    refactorization); after a miss's refactorization, whether the basis was
-    sound (its B⁻¹ then replaces the kept one)."""
+    """One warm solve's use of its operator's kept start inverse, asked at
+    the reads the loop makes anyway: at the first, whether the start state
+    matches it (a hit installs it in place of the start's refactorization);
+    after a miss's refactorization, whether the basis was sound (its B⁻¹
+    then replaces the kept one)."""
 
     def __init__(self, K: DualKernel, s: DState, graphed: bool):
         self.K, self.graphed = K, graphed
-        with _STARTS_LOCK:
-            kept = _STARTS.get(K.A)
+        with _KEPT_LOCK:
+            kept = getattr(_KEPT.get(K.A), "start", None)
         if kept is not None and (kept.refactor_mode, kept.singular_tol) != (
                 K.cfg.refactor_mode, K.cfg.singular_tol):
             kept = None
@@ -562,8 +554,8 @@ class _WarmStart:
         if self.made is None:
             self.hit = yes
         elif yes:
-            with _STARTS_LOCK:
-                _STARTS[self.K.A] = self.made
+            with _KEPT_LOCK:
+                _KEPT.setdefault(self.K.A, Kept()).start = self.made
 
     def refactor(self, s: DState) -> DState:
         """The start's refactorization (a hit: the kept B⁻¹ installed), then
@@ -596,15 +588,16 @@ def _graphable(A) -> bool:
     return A.device.type == "cuda"
 
 
-def step_graphs(K: DualKernel) -> StepGraphs:
-    """The :class:`StepGraphs` of ``K``'s operator and options."""
+def step_graph(K: DualKernel) -> StepGraph:
+    """The :class:`StepGraph` of ``K``'s operator and options."""
     cfg = K.cfg
     key = (K.m, K.n, K.A.dtype, K.dev, cfg.dual_pricing, cfg.dual_ratio, cfg.eps_pivot,
            cfg.eps_dual, cfg.eps_feas, cfg.refactor_period, K.max_iter)
-    graphs = _GRAPHS.setdefault(K.A, {})
-    if key not in graphs:
-        graphs[key] = StepGraphs(K)
-    return graphs[key]
+    with _KEPT_LOCK:
+        graphs = _KEPT.setdefault(K.A, Kept()).graphs
+        if key not in graphs:
+            graphs[key] = StepGraph(K)
+        return graphs[key]
 
 
 def _tensor(v, dtype, dev):
@@ -648,14 +641,14 @@ def initial_state(basis0, vstat0, m: int, n: int, cfg: SolverConfig, dev) -> DSt
     )
 
 
-def _loop(K: DualKernel, s: DState, graphs: StepGraphs | None,
+def _loop(K: DualKernel, s: DState, graph: StepGraph | None,
           warm: _WarmStart | None = None) -> DState:
     """The host loop from ``s``: one read of the packed flags per iteration,
     a refactorization whenever they ask for one (the start state does; with
     ``warm``, the start's goes through it), then an eager step, or with
-    ``graphs`` a replay of the graph of B⁻¹'s layout."""
-    if graphs is not None:
-        Ks = graphs.load(K)
+    ``graph`` a replay of it."""
+    if graph is not None:
+        Ks = graph.load(K)
     refactor = K.refactor if warm is None else warm.refactor
     flags = K.flags(s)
     while True:
@@ -667,16 +660,15 @@ def _loop(K: DualKernel, s: DState, graphs: StepGraphs | None,
             break
         if refactor_due:
             s = refactor(s)
-            if graphs is not None:
-                g = graphs.enter(K, Ks, s)
-                s = g.state
-        if graphs is None:
+            if graph is not None:
+                s = graph.enter(K, Ks, s)
+        if graph is None:
             s, flags = K.step(s)
         else:
             with span("dual.step"):
-                flags = g.replay()
+                flags = graph.replay()
             K.graph_steps += 1
-    if graphs is not None:
+    if graph is not None:
         # nothing returned is a static tensor; B⁻¹ the closing
         # refactorization makes anew
         s = dataclasses.replace(s, **{f.name: getattr(s, f.name).clone()
@@ -724,10 +716,9 @@ def solve_core_dual(
         graphed = _graphable(A)
         # a graphed solve holds its device's lock from loading the static
         # inputs to the closing refactorization's read of the static B⁻¹
-        # (the store of start inverses is read and filled inside it)
         with _LOCKS.setdefault(dev, threading.Lock()) if graphed else contextlib.nullcontext():
             warm = _WarmStart(K, s, graphed) if keep_start else None
-            s = _loop(K, s, step_graphs(K) if graphed else None, warm)
+            s = _loop(K, s, step_graph(K) if graphed else None, warm)
             s = dataclasses.replace(
                 s, status=torch.where(s.status == st.RUNNING, st.ITERATION_LIMIT, s.status))
             # clean final refactorization for extraction

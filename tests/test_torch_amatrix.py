@@ -138,6 +138,10 @@ def test_lu_inverse_matches_gauss_jordan_nonsingular():
     Xj, pj = gauss_jordan_inverse(jnp.asarray(B))
     Xt, pt = lu_inverse(torch.from_numpy(B))
     np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), atol=1e-10)
+    # row-major, with lu_solve's values bit for bit
+    LU, piv = torch.linalg.lu_factor(torch.from_numpy(B))
+    assert Xt.is_contiguous()
+    assert torch.equal(Xt, torch.linalg.lu_solve(LU, piv, torch.eye(24, dtype=torch.float64)))
     # partial pivoting picks the same pivots in both eliminations
     assert float(pt) == pytest.approx(float(pj), rel=1e-9)
     assert float(inverse_residual(torch.from_numpy(B), Xt)) < 1e-12

@@ -161,6 +161,12 @@ def test_batched_inverse_and_rank_one_update_match_the_single_ones():
     B = torch.tensor(rng.standard_normal((L, m, m)) + 4 * np.eye(m))
     B[2] = 0.0  # a singular lane: its pivot is 0, the others' are not
     inv, piv = lu_inverse(B)
+    # row-major lanes, with lu_solve's values bit for bit (NaN on the singular lane)
+    LU, pivots, _ = torch.linalg.lu_factor_ex(B)
+    eye = torch.eye(m, dtype=B.dtype).expand_as(B)
+    assert inv.is_contiguous()
+    torch.testing.assert_close(inv, torch.linalg.lu_solve(LU, pivots, eye), rtol=0, atol=0,
+                               equal_nan=True)
     for s in (0, 1, 3, 4):
         inv1, piv1 = lu_inverse(B[s])
         torch.testing.assert_close(inv[s], inv1, rtol=1e-12, atol=1e-12)

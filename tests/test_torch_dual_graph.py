@@ -1,20 +1,21 @@
 """The dual loop's captured step (``relp_tpu_torch/simplex/dual.py``:
-``StepGraphs``, ``StepGraph``).
+``StepGraph``, kept in its operator's ``Kept`` record).
 
 On the CPU, with a stand-in for the capture whose replay runs the captured
 body eagerly (``static_loop``): the loop over the static tensors (inputs and
 state copied in, the step's replaced fields copied back, each
-refactorization stored into the graph of its B⁻¹'s layout, the state copied
-out) gives the eager loop's x, π, it, basis, vstat and flips bit for bit,
-over full solves and re-solves sharing one operator, under each weight rule
-and ratio test, and so do re-solves that two threads run at once on one
-operator; the CPU itself steps eagerly, with the graph counters at 0 and
-the inner spans entered; the graphs die with their operator.
+refactorization stored into the one graph's row-major state, the state
+copied out) gives the eager loop's x, π, it, basis, vstat and flips bit for
+bit, over full solves and re-solves sharing one operator, under each weight
+rule and ratio test, with one capture per operator and options over LU
+rebuilds and polishes alike, and so do re-solves that two threads run at
+once on one operator; the CPU itself steps eagerly, with the graph counters
+at 0 and the inner spans entered; the graphs die with their operator.
 
 On the card (the ``cuda`` marker; skips here; this file imports no JAX, so
 ``python -m pytest --noconftest tests/test_torch_dual_graph.py -q`` runs it
 there): the replayed graph against the eager step on the benchmark's dense
-LP over its 16 what-ifs, captures only in the first re-solve on an
+LP over its 16 what-ifs, one capture, in the first re-solve on an
 operator, changed bounds on one operator, a second operator after a larger
 scratch replaced the capture stream's, threads re-solving at once on one
 operator and on two while another solves with the primal, and the ELL and
@@ -106,6 +107,11 @@ def kept_dual_outputs(mp):
     return kept
 
 
+def graphs_of(op):
+    """The step graphs ``op`` keeps, by options."""
+    return getattr(dual._KEPT.get(op), "graphs", {})
+
+
 # ---- the CPU ----
 
 def static_loop(mp):
@@ -146,7 +152,7 @@ def threaded(jobs):
 
 def cpu_solves(mp, opts, data):
     """A full dual solve through the driver and three re-solves on one
-    operator; their outputs and the operator."""
+    operator; their outputs, the operator and the re-solves' records."""
     A, b, c, x0 = data
     cfg = SolverConfig(algorithm="dual", scale=False, presolve=False, refactor_period=5, **opts)
     kept = kept_dual_outputs(mp)
@@ -157,31 +163,35 @@ def cpu_solves(mp, opts, data):
     lb = torch.zeros(A.shape[1], dtype=torch.float64)
     prior = solve_core(*t, lb, lb + 2.0, SolverConfig(), 2000)
     op = DenseMatrix(t[0])
+    recs = []
     for k in range(3):
         kept.append(reoptimize_with_bounds(op, t[1], t[2], lb, what_if(x0, k, 8), prior, cfg))
+        recs.append(metrics.recent()[-1])
         assert int(kept[-1].status) == st.OPTIMAL
     assert sum(int(out.flips) for out in kept[1:]) > 0  # the ratio test flipped bounds
-    return kept, op
+    return kept, op, recs
 
 
 @pytest.mark.parametrize("opts", OPTIONS, ids=lambda o: f"{o['dual_pricing']}-{o['dual_ratio']}")
 def test_the_static_loop_repeats_the_eager_bits(monkeypatch, opts):
     data = dense_data(16, 48, seed=3)
     with monkeypatch.context() as mp:
-        eager, op_eager = cpu_solves(mp, opts, data)
-    assert op_eager not in dual._GRAPHS
+        eager, op_eager, _ = cpu_solves(mp, opts, data)
+    assert not graphs_of(op_eager)
     with monkeypatch.context() as mp:
         static_loop(mp)
-        static, op = cpu_solves(mp, opts, data)
-        # the re-solves share one set of static inputs and a graph per layout
-        # of B⁻¹ (the LU rebuild's column-major, the polish's row-major)
-        (graphs,) = dual._GRAPHS[op].values()
-        assert sorted(graphs.by_layout) == [(1, 16), (16, 1)]
+        static, op, recs = cpu_solves(mp, opts, data)
+        # the re-solves share one graph, captured once, over LU rebuilds and
+        # polishes alike: every B⁻¹ is row-major
+        assert sum(r.inverse_rebuilds for r in recs) >= 1
+        assert sum(r.refactorizations - r.inverse_rebuilds for r in recs) >= 1
+        assert [r.graph_captures for r in recs] == [1, 0, 0]
+        (graph,) = dual._KEPT[op].graphs.values()
+        assert graph.state.Binv.is_contiguous()
     for k, (e, s) in enumerate(zip(eager, static)):
         assert_same(e, s, k)
         # nothing returned is a static tensor
-        assert all(s.basis.data_ptr() != g.state.basis.data_ptr()
-                   for g in graphs.by_layout.values())
+        assert s.basis.data_ptr() != graph.state.basis.data_ptr()
 
 
 def test_the_cpu_steps_eagerly():
@@ -199,7 +209,7 @@ def test_the_cpu_steps_eagerly():
     for name in ("dual.step", "dual.leaving", "dual.row", "dual.ratio", "dual.pivot"):
         assert rec.spans[name][0] == int(out.it)
     assert "dual.capture" not in rec.spans
-    assert op not in dual._GRAPHS
+    assert not graphs_of(op)
     cfg = SolverConfig(algorithm="dual", scale=False, presolve=False)
     res = solve_computational_form(build_computational_form(
         general_form(A, b, c, np.full(48, 2.0)), scale=False), cfg, device="cpu")
@@ -241,11 +251,11 @@ def test_the_graphs_die_with_their_operator(monkeypatch):
     static_loop(monkeypatch)
     op = DenseMatrix(t[0].clone())
     reoptimize_with_bounds(op, t[1], t[2], lb, what_if(x0, 1, 8), prior)
-    assert op in dual._GRAPHS
-    before = len(dual._GRAPHS)
+    assert dual._KEPT[op].graphs
+    before = len(dual._KEPT)
     del op
     gc.collect()
-    assert len(dual._GRAPHS) == before - 1
+    assert len(dual._KEPT) == before - 1
 
 
 # ---- the card ----
@@ -310,7 +320,7 @@ def bench_lp():
 @pytest.mark.cuda
 def test_the_graph_repeats_the_eager_step_on_the_benchmark_lp(cuda, bench_lp, monkeypatch):
     P = bench_lp
-    assert P["base"].metrics.graph_captures >= 1
+    assert P["base"].metrics.graph_captures == 1
     assert P["base"].metrics.graph_steps == P["base"].metrics.iterations
     op_eager, op = DenseMatrix(P["A"]), DenseMatrix(P["A"])
     captures = []
@@ -324,10 +334,9 @@ def test_the_graph_repeats_the_eager_step_on_the_benchmark_lp(cuda, bench_lp, mo
         for f in ("it", "basis", "vstat", "flips", "status"):
             assert torch.equal(getattr(e, f), getattr(g, f)), (k, f)
         assert torch.equal(e.x, g.x) and torch.equal(e.pi, g.pi), (k, differences(e, g))
-    # one capture per layout of B⁻¹ met (the LU rebuild's and the polish's),
-    # in the first re-solve only
-    assert captures[0] == len(next(iter(dual._GRAPHS[op].values())).by_layout) >= 1
-    assert captures[1:] == [0] * 15
+    # one capture, in the first re-solve only, for LU rebuilds and polishes
+    assert captures == [1] + [0] * 15
+    assert len(dual._KEPT[op].graphs) == 1
 
 
 @pytest.mark.cuda
@@ -335,7 +344,7 @@ def test_one_capture_serves_every_resolve(cuda, bench_lp, monkeypatch):
     P = bench_lp
     op = DenseMatrix(P["A"])
     recs = [resolve_on(P, op, k % 16, monkeypatch=monkeypatch)[1] for k in range(6)]
-    assert recs[0].graph_captures >= 1 and all(r.graph_captures == 0 for r in recs[1:])
+    assert [r.graph_captures for r in recs] == [1] + [0] * 5
     assert sum(r.graph_steps for r in recs) == sum(r.iterations for r in recs)
 
 
@@ -367,7 +376,7 @@ def test_a_second_operator_and_a_larger_scratch_leave_the_first_graph_sound(
     # is replaced by a larger one, its old memory handed out and scribbled on
     op2 = DenseMatrix(Q["A"])
     _, rec2 = resolve_on(Q, op2, 1, monkeypatch=monkeypatch)
-    assert rec2.graph_captures >= 1 and op2 in dual._GRAPHS
+    assert rec2.graph_captures == 1 and op2 in dual._KEPT
     stream = dual._capture_stream(cuda).cuda_stream
     old = select_epilogue.current_workspace(cuda, stream)
     with torch.cuda.stream(dual._capture_stream(cuda)):

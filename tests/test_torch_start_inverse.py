@@ -1,6 +1,7 @@
 """The start inverses that warm dual re-solves keep (``relp_tpu_torch/simplex/
-dual.py``: ``StartInverse``, ``_STARTS``; ``solve_core_dual(keep_start=True)``,
-which ``reoptimize_with_bounds`` asks for).
+dual.py``: ``StartInverse``, in its operator's ``Kept`` record;
+``solve_core_dual(keep_start=True)``, which ``reoptimize_with_bounds`` asks
+for).
 
 On the CPU, on a dense LP and on a small GENRMF max flow on the ELL operator,
 each re-solved warm from its base solve's basis through one operator: a hit
@@ -18,8 +19,8 @@ dual keeps nothing.
 On the card (the ``cuda`` marker; skips here; this file imports no JAX, so
 ``python -m pytest --noconftest tests/test_torch_start_inverse.py -q`` runs
 it there): hit against miss through the graph path, equal in bits, on the
-benchmark's dense LP and on a GENRMF max flow on ELL, with no capture made
-for a hit.
+benchmark's dense LP and on a GENRMF max flow on ELL, with one capture on
+an operator, in its first re-solve, and none for a hit.
 """
 
 import copy
@@ -163,6 +164,16 @@ def assert_same(a, b, where):
     assert torch.equal(binv_a, binv_b) and binv_a.stride() == binv_b.stride(), where
 
 
+def kept_start(op):
+    """The start inverse kept for ``op``, or None."""
+    return getattr(dual._KEPT.get(op), "start", None)
+
+
+def starts():
+    """How many operators keep a start inverse."""
+    return sum(kept.start is not None for kept in list(dual._KEPT.values()))
+
+
 def static_loop(mp):
     """The CPU's loop over the graphs' static state, as on the card, with a
     stand-in for the capture whose replay runs the captured body eagerly
@@ -197,11 +208,11 @@ def test_a_hit_repeats_the_miss_bit_for_bit(cpu_problem, path, monkeypatch):
         assert int(got[0].status) == st.OPTIMAL
         assert_same(twin, got, (path, k))
         runs.append(got)
-        kept = dual._STARTS[op]
+        kept = kept_start(op)
         if i == 0:
             first_kept = kept.Binv.clone()
         # the steps never write the kept inverse
-        assert kept.Binv is dual._STARTS[op].Binv and torch.equal(kept.Binv, first_kept)
+        assert kept.Binv is kept_start(op).Binv and torch.equal(kept.Binv, first_kept)
     assert_same(runs[0], runs[2], (path, "again"))
     assert sum(int(r[0].flips) for r in runs) + sum(int(r[0].it) for r in runs) > 0
 
@@ -226,7 +237,7 @@ def test_another_start_misses_and_replaces_the_entry(cpu_problem, change):
     miss = warm(Q, op, 2, **other)
     assert miss[2].start_inverse_hits == 0
     assert_same(warm(Q, fresh(Q), 2, **other), miss, change)
-    kept = dual._STARTS[op]
+    kept = kept_start(op)
     if change == "refactor_mode":
         assert kept.refactor_mode == "full"
     else:
@@ -245,24 +256,24 @@ def test_a_singular_start_is_not_kept(cpu_problem, mode):
     basis[1] = basis[0]  # two equal columns of B
     out, _, rec = warm(Q, op, 0, cfg=cfg, basis=basis)
     assert int(out.status) == st.NUMERICAL and rec.start_inverse_hits == 0
-    assert op not in dual._STARTS
+    assert kept_start(op) is None
     out, _, rec = warm(Q, op, 0, cfg=cfg, basis=basis)
-    assert rec.start_inverse_hits == 0 and op not in dual._STARTS
+    assert rec.start_inverse_hits == 0 and kept_start(op) is None
     # a sound start on the same operator is kept
     warm(Q, op, 0, cfg=cfg)
-    assert op in dual._STARTS
+    assert kept_start(op) is not None
 
 
 def test_the_entry_dies_with_its_operator(cpu_problem):
     Q = cpu_problem
     op = fresh(Q)
     warm(Q, op, 0)
-    assert op in dual._STARTS
+    assert kept_start(op) is not None
     gc.collect()
-    before = len(dual._STARTS)
+    before = starts()
     del op
     gc.collect()
-    assert len(dual._STARTS) == before - 1
+    assert starts() == before - 1
 
 
 def threaded(jobs):
@@ -330,10 +341,10 @@ def test_a_hit_counts_and_spans(cpu_problem):
 def test_the_cold_dual_keeps_nothing(cpu_problem):
     Q = cpu_problem
     gc.collect()
-    before = len(dual._STARTS)
+    before = starts()
     res = solve_computational_form(Q.cf, Q.cfg, device="cpu")
     assert res.is_optimal and res.metrics.start_inverse_hits == 0
-    assert len(dual._STARTS) == before
+    assert starts() == before
 
 
 # ---- the card ----
@@ -358,12 +369,9 @@ def test_a_hit_repeats_the_miss_through_the_graph(card_problem):
         assert rec.graph_steps == int(got[0].it) > 0
         assert rec.start_inverse_hits == (i > 0) and rec_twin.start_inverse_hits == 0
         assert_same(twin, got, k)
-        (graphs,) = dual._GRAPHS[op].values()
-        if i == 0:
-            layouts = sorted(graphs.by_layout)
-            assert rec.graph_captures == len(layouts) >= 1
-        else:
-            # the kept B⁻¹ keeps its layout: a hit captures nothing
-            assert rec.graph_captures == 0 and sorted(graphs.by_layout) == layouts
+        assert len(dual._KEPT[op].graphs) == 1
+        # one capture on an operator, in its first re-solve: a hit captures nothing
+        assert (rec.graph_captures, rec_twin.graph_captures) == (i == 0, 1)
+        if i > 0:
             assert rec.refactorizations == rec_twin.refactorizations - 1
     torch.cuda.synchronize()
