@@ -38,8 +38,12 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              a lane-batched solve cut mid-way (and with dead lanes; and on
              the partial-pricing windows [256, 512) and [129, 329)), each
              lane also held bit for bit against the single-vector kernel on
-             its data, each row naming the lanes a block served.  Each pricing kernel,
-             ``ell_spmv`` and both brick kernels are run twice and must give the same bits.  Device time per launch (CUDA events over
+             its data, each row naming the lanes a block served; ``dual_update``
+             (the dual step's update, port-only) under ``dse`` and ``devex`` on
+             the operands of the 200th update of a cold dual solve of the dense
+             LP 768 × 1536 and of the 4,096-node max flow on ELL, every output
+             equal in bits to ``dual_update_plain``'s.  Each pricing kernel,
+             ``ell_spmv``, both brick kernels and ``dual_update`` are run twice and must give the same bits.  Device time per launch (CUDA events over
              batches of 50 launches) beside the plain version's, the bound
              (the bytes the call must move at 3.35 TB/s, or its operations
              at the card's peak) and one PyTorch call as a yardstick
@@ -91,7 +95,9 @@ Run from the root of a checkout.  Phases, each printing its own lines:
              ELL operator (``engine == "dual"``, the objective equal to
              ``scipy``'s, ``ell_price`` at least once per iteration and
              ``ell_spmv`` at least once per refactorization, ``check_state``
-             on the final state under 1e-6, here and on the dense LP); the
+             on the final state under 1e-6, here and on the dense LP;
+             ``dual_update`` once per capture and once per replay, as
+             ``update_kernel_steps`` counts it, here and on the dense LP); the
              same LP at N = 1,024 under
              ``dual_pricing="devex"``, ``dual_ratio="bisect"`` and
              ``xl_engine="lu"`` (``engine == "dual-lu"``, with the host LU's
@@ -222,7 +228,8 @@ N = 4,096 dual solve; its other runs keep their counts apart.)  The report's
 timed row has: ``pdlp`` at N = 4,096 for ``ell_price`` and ``ell_spmv`` (f64
 ``c − Aᵀy`` and A·x), ``dense`` for ``dense_price`` (the f32 sum row), the
 first-order fleet for ``dense_price_lanes`` (16 lanes of ``C − Y·A`` at
-N = 1,024, f32), the primal fleet for ``dense_price_select_lanes`` (the
+N = 1,024, f32), ``dual dense`` for ``dual_update`` (the dense LP under the
+dual, ``dse``), the primal fleet for ``dense_price_select_lanes`` (the
 f32 scan) and the bricks path at N = 4,096 for ``brick_spmv`` and
 ``brick_price`` (f64 A·x and c − Aᵀy, grouped); the other first-order runs
 keep their counts apart.  Every path's counts are
@@ -265,6 +272,7 @@ F32_TOL = 2e-5          # f32 sums run in another order (and fused) than the pla
 F64_TOL = 1e-12
 OBJ_REL = 1e-9
 MID_SOLVE_ITERS = 600   # where the select comparisons take their state
+DUAL_UPDATE_AT = 200    # the update of a cold dual solve whose operands dual_update is held on
 MESH_LANE_STEP = 16     # where the [mesh] phase's lane comparison takes its state
 ANALYSIS_SAMPLE = 8     # cost and rhs intervals of the dense LP held against re-solves
 CUT_WIDTH = 100.0       # examples/column_range.py's cutting stock
@@ -332,6 +340,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "brick_spmv": ("relp_tpu_torch/csrc/brick_kernels.cu", "relp_tpu/ops/pallas_kernels.py:64"),
     "brick_price": ("relp_tpu_torch/csrc/brick_kernels.cu",
                     "relp_tpu/ops/pallas_kernels.py:126"),
+    # the JAX package's dual loop body is one XLA program, which fuses the chain
+    "dual_update": ("relp_tpu_torch/csrc/dual_kernels.cu", "port-only"),
     "probe_scale_f32": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:24"),
     "probe_scale_f64": ("relp_tpu_torch/csrc/probe_kernels.cu", "tools/probe_pallas.py:37"),
 }
@@ -343,6 +353,7 @@ def _wrappers():
     from relp_tpu_torch.ops.dense_kernels import (
         dense_price, dense_price_lanes, dense_price_select, dense_price_select_lanes,
     )
+    from relp_tpu_torch.ops.dual_kernels import dual_update
     from relp_tpu_torch.ops.probe_kernels import probe_scale_f32, probe_scale_f64
     from relp_tpu_torch.ops.sparse_kernels import ell_price, ell_price_select, ell_spmv
 
@@ -351,6 +362,7 @@ def _wrappers():
             "dense_price_select": dense_price_select, "dense_price_lanes": dense_price_lanes,
             "dense_price_select_lanes": dense_price_select_lanes,
             "brick_spmv": brick_spmv, "brick_price": brick_price,
+            "dual_update": dual_update,
             "probe_scale_f32": probe_scale_f32, "probe_scale_f64": probe_scale_f64}
 
 
@@ -859,6 +871,109 @@ def _kernels_probe(smi, dev):
     return report
 
 
+class _Captured(Exception):
+    pass
+
+
+def _update_operands(general, pricing, dev, at=DUAL_UPDATE_AT):
+    """``(K, state, pivot)`` of the ``at``-th update of a cold dual solve of
+    ``general`` under ``pricing``, stepped eagerly: what the step hands
+    ``dual.pivot_update``, copied."""
+    from relp_tpu_torch.model.computational_form import build_computational_form
+    from relp_tpu_torch.ops.dual_kernels import Pivot
+    from relp_tpu_torch.simplex import driver, dual
+    from relp_tpu_torch.utils.config import SolverConfig
+
+    real, graphable, kept = dual.pivot_update, dual._graphable, []
+
+    def spy(K, s, piv):
+        kept.append(None)
+        if len(kept) == at:
+            kept[-1] = (K, dual._cloned(s), Pivot(*(None if t is None else t.clone()
+                                                    for t in piv)))
+            raise _Captured
+        return real(K, s, piv)
+
+    dual.pivot_update, dual._graphable = spy, lambda A: False
+    try:
+        driver.solve_computational_form(
+            build_computational_form(general, scale=False),
+            SolverConfig(algorithm="dual", scale=False, presolve=False, dual_pricing=pricing),
+            device=dev)
+    except _Captured:
+        return kept[-1]
+    finally:
+        dual.pivot_update, dual._graphable = real, graphable
+    raise AssertionError(f"[kernels] the dual solve ended before update {at}")
+
+
+def _kernels_dual(smi, dev):
+    """``dual_update`` (through ``dual.pivot_update``) against
+    ``dual_update_plain`` on the operands of a mid-solve update of the dense
+    LP and of the max flow, under both weight rules: every output in bits,
+    twice; then both timed.  The bound is each input read once and each
+    output written once: 8 bytes an element of u, B⁻¹·(A·dx), ρ, xB, π, β
+    and the basis in (τ too under ``dse``) and of xB, π, β and the basis out
+    (m each); of α and d in and d out (n each), 1 of the flips' mask; 8 of
+    the statuses in and out (n + m each)."""
+    import torch
+
+    from relp_tpu_torch.models.dense import dense_lp
+    from relp_tpu_torch.simplex import dual
+
+    names = ("basis", "vstat", "xB", "pi", "d", "beta", "status", "it", "since_refactor",
+             "flips")
+
+    def bits(t):
+        return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+    def same(a, b):
+        (s1, f1, p1), (s2, f2, p2) = a, b
+        pairs = [(getattr(s1, k), getattr(s2, k)) for k in names] + [(f1, f2), (p1, p2)]
+        return [k for k, (x, y) in zip(names + ("flags", "do_pivot"), pairs)
+                if not torch.equal(bits(x), bits(y))]
+
+    report = {}
+    for label, general in ((f"dense LP {DENSE_SHAPE[0]}x{DENSE_SHAPE[1]}",
+                            dense_lp(*DENSE_SHAPE)),
+                           (f"max flow N={N_NODES}", slice_problem()[0])):
+        for pricing in ("dse", "devex"):
+            K, s, piv = _update_operands(general, pricing, dev)
+            if K.A.format != ("dense" if label.startswith("dense") else "ell"):
+                raise AssertionError(f"[kernels] dual_update {label}: operator {K.A.format}")
+            kernel_fn = lambda: dual.pivot_update(K, s, piv)  # noqa: E731
+            plain_fn = lambda: dual.dual_update_plain(K, s, piv)  # noqa: E731
+            got = kernel_fn()
+            again = kernel_fn()
+            want = plain_fn()
+            torch.cuda.synchronize()
+            differ = same(got, want) + [f"{k} (twice)" for k in same(got, again)]
+            if differ:
+                raise AssertionError(f"[kernels] dual_update {label} {pricing}: {differ} "
+                                     "differ from dual_update_plain's bits")
+            m, n = s.basis.shape[0], K.n
+            nbytes = (8 * (7 + (pricing == "dse")) + 8 * 4) * m + (8 * 3 + 1) * n \
+                + 16 * (n + m)
+            # the plain chain is ~120 launches: two calls a batch stay well
+            # inside the sleep's hold while the reference processes share the host
+            row = {"max_abs_err": 0.0, "ms": _device_ms(kernel_fn),
+                   "plain_ms": _device_ms(plain_fn, 2, batches=5),
+                   "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+                   "library_ms": None}
+            host_ms, plain_host_ms = _host_ms(kernel_fn), _host_ms(plain_fn, 10)
+            print(f"[kernels] dual_update {label} {pricing} (m {m} n {n}; update "
+                  f"{DUAL_UPDATE_AT}: pivot {bool(got[2])}, {int(piv.n_flips)} flips): every "
+                  f"output == dual_update_plain in bits, same bits twice; device kernel "
+                  f"{row['ms'] * 1e3:.2f} us plain {row['plain_ms'] * 1e3:.2f} us least "
+                  f"{row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.3f} MB, by bytes: "
+                  f"{row['bound_ms'] / row['ms']:.0%} of it reached); per call from the host "
+                  f"kernel {host_ms * 1e3:.1f} us plain {plain_host_ms * 1e3:.1f} us [{smi}]")
+            report[(label, pricing)] = row
+            del K, s, piv
+        torch.cuda.empty_cache()
+    return {"dual_update": report[(f"dense LP {DENSE_SHAPE[0]}x{DENSE_SHAPE[1]}", "dse")]}
+
+
 def _padded_dense(general):
     """The padded dense A of ``general``'s computational form without
     presolve (as the fleets run), on the host."""
@@ -1214,6 +1329,8 @@ def phase_kernels(smi):
     del ell_op, dense_op
     torch.cuda.empty_cache()
     timings.update(_kernels_bricks(smi, dev, rng))
+    torch.cuda.empty_cache()
+    timings.update(_kernels_dual(smi, dev))
     return timings
 
 
@@ -1677,6 +1794,18 @@ def phase_dual(smi, launches, highs, milp_ref):
                                  f"recording {[g['recorded'][names[0]] for g in graphs]} "
                                  f"{names[0]}; graph_steps {met.graph_steps} graph_captures "
                                  f"{met.graph_captures}")
+        # the update kernel: once in each graph, which its replays launch, and
+        # once in the eager step before each capture, which the metric leaves out
+        if any(g["recorded"]["dual_update"] != 1 for g in graphs) or \
+                REPLAYED[path]["dual_update"] != met.update_kernel_steps or \
+                met.update_kernel_steps != met.graph_steps or \
+                PATHS[path]["dual_update"] != met.graph_captures:
+            raise AssertionError(f"[dual] dual_update launched {PATHS[path]['dual_update']} "
+                                 f"times from the host and {REPLAYED[path]['dual_update']} "
+                                 f"replayed ({[g['recorded']['dual_update'] for g in graphs]} "
+                                 f"a graph); update_kernel_steps {met.update_kernel_steps} "
+                                 f"graph_steps {met.graph_steps} graph_captures "
+                                 f"{met.graph_captures}")
         its = max(met.iterations, 1)
         print("[dual] launches from the host "
               + " ".join(f"{k} {v} ({v / its:.3f}/iter)" for k, v in PATHS[path].items())
@@ -1692,7 +1821,8 @@ def phase_dual(smi, launches, highs, milp_ref):
 
     # 1. the slice's LP at full width, dual from scratch
     general, flow = slice_problem()
-    met = checked_dual_solve("dual", ("ell_price", "ell_spmv"), f"max-flow N={N_NODES}", general,
+    met = checked_dual_solve("dual", ("ell_price", "ell_spmv", "dual_update"),
+                             f"max-flow N={N_NODES}", general,
                              f"maxflow_{N_NODES}", "ell", SolverConfig(algorithm="dual"), flow,
                              smi, abs_tol=1e-6)
     refactorizations = met.iterations // DEFAULT_CONFIG.refactor_period
@@ -1717,12 +1847,15 @@ def phase_dual(smi, launches, highs, milp_ref):
 
     # 3. the dense LP at its documented size, on the dense operator
     m, n = DENSE_SHAPE
-    met = checked_dual_solve("dual dense", ("dense_price",), f"dense LP {m}x{n}",
+    met = checked_dual_solve("dual dense", ("dense_price", "dual_update"), f"dense LP {m}x{n}",
                              dense_lp(m, n), f"dense_{m}x{n}", "dense",
                              SolverConfig(algorithm="dual"), highs.result(), smi)
     if launched("dual dense", "dense_price") < met.iterations:
         raise AssertionError(f"[dual] launches {PATHS['dual dense']} for {met.iterations} "
                              "iterations")
+    # the report's dual_update launches: the dense LP's (its timed row's shape)
+    launches["dual_update"] = PATHS["dual dense"]["dual_update"]
+    launches["dual_update replayed"] = REPLAYED["dual dense"]["dual_update"]
 
     # 4. reoptimization: the dense LP at 256 × 512, a seeded tenth of the upper
     # bounds tightened, from the prior output against a cold primal solve

@@ -55,6 +55,8 @@ SIGNATURES = {
     "relp_brick_spmv_f64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
     "relp_brick_price_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
     "relp_brick_price_f64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
+    # dual_kernels.cu: DualUpdateArgs* (ops/dual_kernels.py), devex, stream
+    "relp_dual_update": [_P, _I32, _P],
     # probe_kernels.cu: x, out, n, stream
     "relp_probe_scale_f32": [_P, _P, _I64, _P],
     "relp_probe_scale_f64": [_P, _P, _I64, _P],

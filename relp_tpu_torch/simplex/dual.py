@@ -19,7 +19,10 @@ Per iteration (the arithmetic of the JAX loop body, in its order):
      that slope crosses zero, a Harris-style tolerance picking the largest
      |α| among near-ties (primal INFEASIBLE when no candidate blocks),
   3. the batch of flips (one ``A.matvec`` and one product with B⁻¹), then the
-     pivot: u = B⁻¹a_q, update of xB, B⁻¹, π, d, the weights and statuses.
+     pivot: u = B⁻¹a_q, update of xB, B⁻¹, π, d, the weights and statuses;
+     all of it after the products with A and B⁻¹, but for B⁻¹'s own update,
+     is :func:`pivot_update`: one launch of ``ops/dual_kernels.py::
+     dual_update`` on a CUDA device, :func:`dual_update_plain` elsewhere.
 
 The loop has the shape of the JAX package's externally refactorized form
 (``_make_kernel(external=True)``), as the primal's has: :meth:`DualKernel.
@@ -56,8 +59,9 @@ the host waits for the device there) and ``dual.extract``; in an eager step
 ``dual.leaving`` (1.), ``dual.row`` (ρ and α), ``dual.ratio`` (the
 candidates and the ratio test) and ``dual.pivot`` (3.), none of which a
 replay enters.  The kernel counts its refactorizations, LU rebuilds,
-kept start inverses taken, replayed iterations and captures on the host and
-adds them to the open solve record.
+kept start inverses taken, replayed iterations, captures and launches of
+the ``dual_update`` kernel (each made from the host, and each recorded in a
+graph once per replay) on the host and adds them to the open solve record.
 """
 
 from __future__ import annotations
@@ -71,7 +75,9 @@ import weakref
 import numpy as np
 import torch
 
+from relp_tpu_torch.ops import dual_kernels
 from relp_tpu_torch.ops.amatrix import DenseMatrix
+from relp_tpu_torch.ops.dual_kernels import Pivot
 from relp_tpu_torch.ops.linalg import inverse_residual, lu_inverse, rank_one_basis_update
 from relp_tpu_torch.ops.select_epilogue import current_workspace
 from relp_tpu_torch.simplex import status as st
@@ -160,6 +166,7 @@ class DualKernel:
         self.start_inverse_hits = 0
         self.graph_steps = 0
         self.graph_captures = 0
+        self.update_kernel_steps = 0
 
     def _read(self, t: torch.Tensor):
         """Bring a small tensor to the host (one synchronisation)."""
@@ -263,7 +270,7 @@ class DualKernel:
         in place.  Returns ``(state, flags)`` with :meth:`flags` of the new
         state."""
         A, cfg, n = self.A, self.cfg, self.n
-        lb, ub, lb_tot, ub_tot = self.lb, self.ub, self.lb_tot, self.ub_tot
+        lb_tot, ub_tot = self.lb_tot, self.ub_tot
         with span("dual.step"):
             with span("dual.leaving"):
                 broken = ~torch.isfinite(s.xB.sum() + s.pi.sum())
@@ -310,87 +317,119 @@ class DualKernel:
                 q, has_entering, flip_mask = ratio_test(cand, ratio, cap, abs_alpha, viol_r)
                 n_flips = flip_mask.sum()
             with span("dual.pivot"):
-                # pivot quantities
                 u = A.ftran(s.Binv, q)
-                p = _at(u, r)
-                ok_pivot = p.abs() > cfg.eps_pivot
-                p_safe = torch.where(p.abs() > 1e-300, p, 1.0)
-                do_pivot = ~primal_feasible & has_entering & ~broken & ok_pivot
-
-                # ---- the batch of bound flips: one A·dx and one product with B⁻¹,
-                # computed every iteration and selected (dx is zero without flips)
-                at_lower = vs == st.NB_LOWER
-                dx = torch.where(flip_mask, torch.where(at_lower, self.boxed_range,
+                # the batch of bound flips: one A·dx and one product with B⁻¹,
+                # computed every iteration (dx is zero without flips) and
+                # selected by the update
+                dx = torch.where(flip_mask, torch.where(vs == st.NB_LOWER, self.boxed_range,
                                                         -self.boxed_range), 0.0)
-                xB_f = torch.where(do_pivot & (n_flips > 0), s.xB - s.Binv @ A.matvec(dx), s.xB)
-                flip_to = torch.where(at_lower, st.NB_UPPER, st.NB_LOWER)
-                vstat_flip = torch.where(flip_mask, flip_to, vs)
-
-                bound_r = torch.where(leaving_below, _at(lbk, r), _at(ubk, r))
-                theta_p = (_at(xB_f, r) - bound_r) / p_safe
-                vq = _at(vs, q)
-                start_val = torch.where(vq == st.NB_UPPER, _at(ub, q),
-                                        torch.where(vq == st.NB_LOWER, _at(lb, q), 0.0))
-
-                xB_new = _put(xB_f - theta_p * u, r, start_val + theta_p)
-                d_q = _at(d, q)
-                theta_d = d_q / p_safe
-                pi_new = s.pi + theta_d * rho
-                # incremental reduced costs: d' = d − θ_D·α (the entering column's d
-                # becomes 0, the leaving column's −θ_D)
-                d_new = _put(d - theta_d * alpha, q, torch.zeros_like(d_q))
-                ratio_u = u / p_safe
-                beta_r = _at(s.beta, r)
-                if cfg.dual_pricing == "devex":
-                    # devex reference weights (dual form): γ_i' = max(γ_i,
-                    # (u_i/p)²·γ_r), γ_r' = max(γ_r/p², 1), from the FTRAN column alone
-                    beta_new = torch.maximum(s.beta, ratio_u * ratio_u * beta_r)
-                    beta_new = _put(beta_new, r, (beta_r / (p_safe * p_safe)).clamp_min(1.0))
-                    beta_new = beta_new.clamp(1e-12, 1e12)
-                else:
-                    # Forrest–Goldfarb exact dual-steepest-edge weight update:
-                    #   τ = B⁻¹·(B⁻¹[r,:])ᵀ;  β_r' = β_r/p²;
-                    #   β_i' = β_i − 2(u_i/p)·τ_i + (u_i/p)²·β_r   (i ≠ r)
-                    tau = s.Binv @ rho
-                    beta_new = s.beta - 2.0 * ratio_u * tau + ratio_u * ratio_u * beta_r
-                    beta_new = _put(beta_new, r, beta_r / (p_safe * p_safe)).clamp_min(1e-12)
-
-                kr = _at(k, r)
-                leave_stat = torch.where(leaving_below, st.NB_LOWER, st.NB_UPPER)
-                leave_stat = torch.where(_at(lb_tot, kr) == _at(ub_tot, kr), st.NB_FIXED,
-                                         leave_stat)
-                vstat_new = torch.cat([vstat_flip, s.vstat[n:]])
-                vstat_new = _put(_put(vstat_new, kr, leave_stat), q, torch.full_like(kr, st.BASIC))
-
-                status_new = torch.where(
-                    primal_feasible & fresh & ~broken,
-                    st.OPTIMAL,
-                    torch.where(~primal_feasible & ~has_entering & fresh & ~broken,
-                                st.INFEASIBLE, s.status),
-                )
-                wants_terminal = primal_feasible | (~primal_feasible & ~has_entering)
-                # a too-small pivot is a numerical event: rebuild and retry
-                force_refac = (wants_terminal & ~fresh) | broken | (
-                    ~primal_feasible & has_entering & ~ok_pivot)
-
+                bdx = s.Binv @ A.matvec(dx)
+                # DSE's τ = B⁻¹·(B⁻¹[r,:])ᵀ
+                tau = None if cfg.dual_pricing == "devex" else s.Binv @ rho
+                # xB, π, d, the weights, statuses, basis, counters and flags
+                s_out, flags, do_pivot = pivot_update(self, s, Pivot(
+                    r, q, has_entering, n_flips, flip_mask, primal_feasible, broken, fresh,
+                    leaving_below, u, bdx, tau, rho, alpha))
                 # B⁻¹ last: everything above reads the pre-pivot inverse
                 rank_one_basis_update(s.Binv, u, r, apply=do_pivot)
-                s_out = DState(
-                    basis=torch.where(do_pivot, _put(k.clone(), r, q), k),
-                    vstat=torch.where(do_pivot, vstat_new, s.vstat),
-                    xB=torch.where(do_pivot, xB_new, s.xB),
-                    Binv=s.Binv,
-                    pi=torch.where(do_pivot, pi_new, s.pi),
-                    d=torch.where(do_pivot, d_new, s.d),
-                    beta=torch.where(do_pivot, beta_new, s.beta),
-                    status=status_new,
-                    it=s.it + 1,
-                    since_refactor=torch.where(
-                        force_refac, cfg.refactor_period, s.since_refactor + do_pivot.long()),
-                    repairs=s.repairs,
-                    flips=s.flips + torch.where(do_pivot, n_flips, 0),
-                )
-            return s_out, self.flags(s_out)
+            return s_out, flags
+
+
+def dual_update_plain(K: DualKernel, s: DState, piv: Pivot):
+    """The update of state ``s`` by the pivot ``piv`` under ``K``'s bounds,
+    options and iteration cap, in PyTorch: ``(state, flags, do_pivot)``, the
+    state a new one whose ``Binv`` is ``s.Binv``, not yet updated."""
+    cfg, n = K.cfg, K.n
+    lb, ub, lb_tot, ub_tot = K.lb, K.ub, K.lb_tot, K.ub_tot
+    r, q, u, rho, alpha = piv.r, piv.q, piv.u, piv.rho, piv.alpha
+    primal_feasible, broken, has_entering = piv.primal_feasible, piv.broken, piv.has_entering
+    leaving_below, n_flips, flip_mask = piv.leaving_below, piv.n_flips, piv.flip_mask
+    k, d, vs = s.basis, s.d, s.vstat[:n]
+
+    p = _at(u, r)
+    ok_pivot = p.abs() > cfg.eps_pivot
+    p_safe = torch.where(p.abs() > 1e-300, p, 1.0)
+    do_pivot = ~primal_feasible & has_entering & ~broken & ok_pivot
+
+    at_lower = vs == st.NB_LOWER
+    xB_f = torch.where(do_pivot & (n_flips > 0), s.xB - piv.bdx, s.xB)
+    flip_to = torch.where(at_lower, st.NB_UPPER, st.NB_LOWER)
+    vstat_flip = torch.where(flip_mask, flip_to, vs)
+
+    kr = _at(k, r)
+    bound_r = torch.where(leaving_below, _at(lb_tot, kr), _at(ub_tot, kr))
+    theta_p = (_at(xB_f, r) - bound_r) / p_safe
+    vq = _at(vs, q)
+    start_val = torch.where(vq == st.NB_UPPER, _at(ub, q),
+                            torch.where(vq == st.NB_LOWER, _at(lb, q), 0.0))
+
+    xB_new = _put(xB_f - theta_p * u, r, start_val + theta_p)
+    d_q = _at(d, q)
+    theta_d = d_q / p_safe
+    pi_new = s.pi + theta_d * rho
+    # incremental reduced costs: d' = d − θ_D·α (the entering column's d
+    # becomes 0, the leaving column's −θ_D)
+    d_new = _put(d - theta_d * alpha, q, torch.zeros_like(d_q))
+    ratio_u = u / p_safe
+    beta_r = _at(s.beta, r)
+    if cfg.dual_pricing == "devex":
+        # devex reference weights (dual form): γ_i' = max(γ_i,
+        # (u_i/p)²·γ_r), γ_r' = max(γ_r/p², 1), from the FTRAN column alone
+        beta_new = torch.maximum(s.beta, ratio_u * ratio_u * beta_r)
+        beta_new = _put(beta_new, r, (beta_r / (p_safe * p_safe)).clamp_min(1.0))
+        beta_new = beta_new.clamp(1e-12, 1e12)
+    else:
+        # Forrest–Goldfarb exact dual-steepest-edge weight update:
+        #   τ = B⁻¹·(B⁻¹[r,:])ᵀ;  β_r' = β_r/p²;
+        #   β_i' = β_i − 2(u_i/p)·τ_i + (u_i/p)²·β_r   (i ≠ r)
+        beta_new = s.beta - 2.0 * ratio_u * piv.tau + ratio_u * ratio_u * beta_r
+        beta_new = _put(beta_new, r, beta_r / (p_safe * p_safe)).clamp_min(1e-12)
+
+    leave_stat = torch.where(leaving_below, st.NB_LOWER, st.NB_UPPER)
+    leave_stat = torch.where(_at(lb_tot, kr) == _at(ub_tot, kr), st.NB_FIXED, leave_stat)
+    vstat_new = torch.cat([vstat_flip, s.vstat[n:]])
+    vstat_new = _put(_put(vstat_new, kr, leave_stat), q, torch.full_like(kr, st.BASIC))
+
+    fresh = piv.fresh
+    status_new = torch.where(
+        primal_feasible & fresh & ~broken,
+        st.OPTIMAL,
+        torch.where(~primal_feasible & ~has_entering & fresh & ~broken,
+                    st.INFEASIBLE, s.status),
+    )
+    wants_terminal = primal_feasible | (~primal_feasible & ~has_entering)
+    # a too-small pivot is a numerical event: rebuild and retry
+    force_refac = (wants_terminal & ~fresh) | broken | (
+        ~primal_feasible & has_entering & ~ok_pivot)
+
+    s_out = dataclasses.replace(
+        s,
+        basis=torch.where(do_pivot, _put(k.clone(), r, q), k),
+        vstat=torch.where(do_pivot, vstat_new, s.vstat),
+        xB=torch.where(do_pivot, xB_new, s.xB),
+        pi=torch.where(do_pivot, pi_new, s.pi),
+        d=torch.where(do_pivot, d_new, s.d),
+        beta=torch.where(do_pivot, beta_new, s.beta),
+        status=status_new,
+        it=s.it + 1,
+        since_refactor=torch.where(
+            force_refac, cfg.refactor_period, s.since_refactor + do_pivot.long()),
+        flips=s.flips + torch.where(do_pivot, n_flips, 0),
+    )
+    return s_out, K.flags(s_out), do_pivot
+
+
+def pivot_update(K: DualKernel, s: DState, piv: Pivot):
+    """:func:`dual_update_plain`'s ``(state, flags, do_pivot)``: on a CUDA
+    device from one launch of the ``dual_update`` kernel into fresh tensors
+    (counted in ``K.update_kernel_steps``), elsewhere the plain version."""
+    if K.dev.type != "cuda":
+        return dual_update_plain(K, s, piv)
+    fields, flags, do_pivot = dual_kernels.dual_update(
+        piv, s, K.lb, K.ub, K.lb_tot, K.ub_tot, refactor_period=K.cfg.refactor_period,
+        max_iter=K.max_iter, eps_pivot=K.cfg.eps_pivot, devex=K.cfg.dual_pricing == "devex")
+    K.update_kernel_steps += 1
+    return dataclasses.replace(s, **fields), flags, do_pivot
 
 
 # what DualKernel.step reads of its kernel besides the operator and the options
@@ -415,7 +454,8 @@ class StepGraph:
     the loop state (:attr:`state`, which every refactorization is stored
     into, the first capturing the graph: :meth:`enter`).  The captured body
     is the step, then the copy of the fields it replaces back into
-    :attr:`state`; :attr:`flags` is the packed flags it returns.  The graph
+    :attr:`state`; :attr:`flags` is the packed flags it returns,
+    :attr:`update_launches` the ``dual_update`` launches it recorded.  The graph
     holds every tensor its kernels point at that the operator does not:
     these, its memory pool and the capture stream's pricing scratch
     (:attr:`workspace`), which a larger one may replace for later launches.
@@ -424,6 +464,7 @@ class StepGraph:
     def __init__(self, K: DualKernel):
         self.inputs = {k: getattr(K, k).clone() for k in _STEP_INPUTS}
         self.state: DState | None = None
+        self.update_launches = 0
 
     def load(self, K: DualKernel) -> DualKernel:
         """Copy ``K``'s inputs in; returns ``K`` reading the static ones
@@ -469,8 +510,11 @@ class StepGraph:
             self.graph = torch.cuda.CUDAGraph()
             # another thread's work on the device (its allocations among
             # it) may go on while this one records
+            steps = Ks.update_kernel_steps
             with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
                 self.flags = self.body(Ks)
+            # the update kernel's launches the graph recorded: each replay's
+            self.update_launches = Ks.update_kernel_steps - steps
             self.workspace = current_workspace(dev, stream.cuda_stream)
 
     def replay(self) -> torch.Tensor:
@@ -668,6 +712,7 @@ def _loop(K: DualKernel, s: DState, graph: StepGraph | None,
             with span("dual.step"):
                 flags = graph.replay()
             K.graph_steps += 1
+            K.update_kernel_steps += graph.update_launches
     if graph is not None:
         # nothing returned is a static tensor; B⁻¹ the closing
         # refactorization makes anew
@@ -725,7 +770,7 @@ def solve_core_dual(
             s = K.refactor(s)
         count(refactorizations=K.refactorizations, inverse_rebuilds=K.inverse_rebuilds,
               start_inverse_hits=K.start_inverse_hits, graph_steps=K.graph_steps,
-              graph_captures=K.graph_captures,
+              graph_captures=K.graph_captures, update_kernel_steps=K.update_kernel_steps,
               inverse_bytes=m * m * F64.itemsize)
         if final_state is not None:
             final_state.append((K, s))

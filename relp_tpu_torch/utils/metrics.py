@@ -121,6 +121,10 @@ class SolveMetrics:
     # and the captures of such a graph the solve paid for (0 on the CPU)
     graph_steps: int = 0
     graph_captures: int = 0
+    # the dual's launches of the dual_update kernel (ops/dual_kernels.py):
+    # those made from the host, and per replay those its step graph recorded
+    # (one an iteration on a CUDA device, 0 on the CPU)
+    update_kernel_steps: int = 0
     # bytes of the explicit B⁻¹ the device dual held (m_padded² · 8; 0 where
     # it did not run)
     inverse_bytes: int = 0
