@@ -847,27 +847,37 @@ def _run_dual_lu_host(p: _Padded, lb_d, ub_d, warm, repair=False, iter_cap=None)
     return out
 
 
-def _dual_start(p: _Padded):
-    """The dual simplex's start from scratch: the all-artificial basis is
-    dual feasible once every nonbasic sits on the bound matching sign(c_j)
-    (π = 0 ⇒ d = c); a column without a finite bound on that side gets a
-    temporary ±``config.dual_box``.  Returns the boxed bounds, the
-    warm-start arguments and the masks of the boxed columns."""
-    cf, b, c, lb, ub = p.cf, p.b, p.c, p.lb, p.ub
-    boxM = float(p.config.dual_box)
+def dual_cold_start(b, c, lb, ub, matvec, box: float):
+    """The dual simplex's start from scratch on padded arrays (numpy): the
+    all-artificial basis is dual feasible once every nonbasic sits on the
+    bound matching sign(c_j) (π = 0 ⇒ d = c); a column without a finite
+    bound on that side gets a temporary ±``box``.  ``matvec(x)`` is A·x over
+    the padded rows.  Returns the boxed bounds, the warm-start arguments of
+    ``solve_core_dual`` and the masks of the boxed columns."""
     fixed = lb == ub
     need_low = (c >= 0) & ~np.isfinite(lb) & ~fixed
     need_up = (c < 0) & ~np.isfinite(ub) & ~fixed
-    lb_d = np.where(need_low, -boxM, lb)
-    ub_d = np.where(need_up, boxM, ub)
+    lb_d = np.where(need_low, -box, lb)
+    ub_d = np.where(need_up, box, ub)
     vstat0 = np.where(fixed, st.NB_FIXED,
                       np.where(c >= 0, st.NB_LOWER, st.NB_UPPER)).astype(np.int64)
     x0 = np.where(vstat0 == st.NB_UPPER, ub_d, lb_d)
-    r0 = b.copy()
-    r0[: cf.m] -= np.asarray(p.A_csc @ x0[: cf.n])
-    warm = dict(basis0=p.n_pad + np.arange(p.m_pad), vstat0=vstat0,
+    r0 = b - matvec(x0)
+    warm = dict(basis0=len(c) + np.arange(len(b)), vstat0=vstat0,
                 art_sign0=np.where(r0 >= 0, 1.0, -1.0))
     return lb_d, ub_d, warm, need_low, need_up
+
+
+def _dual_start(p: _Padded):
+    """:func:`dual_cold_start` of the padded problem ``p``."""
+    cf = p.cf
+
+    def matvec(x):
+        out = np.zeros(p.m_pad)
+        out[: cf.m] = p.A_csc @ x[: cf.n]
+        return out
+
+    return dual_cold_start(p.b, p.c, p.lb, p.ub, matvec, float(p.config.dual_box))
 
 
 def _routes_xl_on_host(dev: torch.device) -> bool:

@@ -4,7 +4,10 @@ The branch-and-bound / scenario-update pattern: after solving an LP, change
 variable bounds (the optimal basis stays *dual* feasible because costs are
 untouched) and re-solve with the dual simplex in a handful of iterations;
 falls back to a warm primal solve if the dual method fails, and to a cold
-primal solve as the last resort.  The ladder is the algorithm's: a failure
+primal solve as the last resort.  With ``trust_infeasible`` the dual's
+INFEASIBLE is an answer, not a failure: a leaving row that no candidate
+blocks after a fresh factorization, every boxed candidate flipped, cannot
+reach its bound under the new bounds, which proves them infeasible.  The ladder is the algorithm's: a failure
 of a device call is not caught here, and nothing moves to another device.
 """
 
@@ -32,6 +35,7 @@ def reoptimize_with_bounds(
     config: SolverConfig = DEFAULT_CONFIG,
     max_iter: Optional[int] = None,
     device: DeviceLike = None,
+    trust_infeasible: bool = False,
 ) -> SolveOutput:
     """Re-solve ``min c@x, A@x=b, new_lb<=x<=new_ub`` starting from the
     basis of ``prior`` (a SolveOutput for the same padded shapes).  ``A`` is
@@ -39,7 +43,9 @@ def reoptimize_with_bounds(
     are numpy arrays or tensors.  The solve runs on ``A``'s device when it
     has one, else on ``device``.  Emits one ``SolveMetrics`` record (call
     ``"reoptimize"``), which names the operator's ``matrix_format``.
-    ``driver.device_problem`` gives a solved form's arrays and operator."""
+    ``driver.device_problem`` gives a solved form's arrays and operator.
+    ``trust_infeasible`` returns the dual's INFEASIBLE without the primal
+    fallback (the default falls back, as the JAX package does)."""
     with recording("reoptimize") as rec, Timer() as t, span("reoptimize"):
         with span("reoptimize.prepare"):
             A = as_device_operator(A, device)
@@ -59,7 +65,7 @@ def reoptimize_with_bounds(
                               art_sign0=art_sign0, keep_start=True)
         status = _tally(rec, out)
         rec.engine = "dual"
-        if status != st.OPTIMAL:
+        if status != st.OPTIMAL and not (trust_infeasible and status == st.INFEASIBLE):
             with span("reoptimize.fallback"):
                 # dual failed (e.g. the start was not dual feasible): warm primal
                 out = solve_core(A, b, c, new_lb, new_ub, config, max_iter, basis0=basis0,

@@ -1,7 +1,7 @@
 """Per-solve metrics, spans, a wall-clock timer and a device profiler hook.
 
-Every solve (the driver's ``solve_computational_form`` and
-``reoptimize_with_bounds``) produces a :class:`SolveMetrics` record, logged
+Every solve (the driver's ``solve_computational_form``,
+``reoptimize_with_bounds`` and ``solve_mip``) produces a :class:`SolveMetrics` record, logged
 at INFO level on the ``relp_tpu_torch`` logger and kept in :func:`recent`;
 :func:`device_trace` profiles the enclosed work with ``torch.profiler`` into
 a Chrome trace.
@@ -38,6 +38,7 @@ _IDS = itertools.count(1)
 class _Open(threading.local):
     def __init__(self):
         self.records: list = []  # the records of the entry points open on this thread
+        self.closed = None       # the record this thread closed last
 
 
 _OPEN = _Open()
@@ -47,8 +48,9 @@ _OPEN = _Open()
 class SolveMetrics:
     """One solve's worth of counters."""
 
-    call: str = ""            # the entry point: "solve" (the driver) or "reoptimize"
+    call: str = ""            # the entry point: "solve" (the driver), "reoptimize" or "mip"
     solve_id: int = 0         # the process's sequence number of the record
+    parent: int = 0           # solve_id of the record open on its thread when it opened (0: none)
     status: str = ""
     iterations: int = 0
     wall_s: float = 0.0
@@ -128,6 +130,20 @@ class SolveMetrics:
     # bytes of the explicit B⁻¹ the device dual held (m_padded² · 8; 0 where
     # it did not run)
     inverse_bytes: int = 0
+    # a branch and bound (call "mip", models/branch_bound.py::solve_mip):
+    # its nodes, the LP iterations of the root, the cut rounds and the nodes
+    # (``iterations`` counts the root's and the cut rounds' alone; each node
+    # has a "reoptimize" record of its own, whose ``parent`` is this one),
+    # the cut rounds that derived cuts and the cuts in force at the end, the
+    # incumbents found, the nodes pruned by bound, and the node re-solves
+    # whose start found no kept B⁻¹ (start_inverse_hits 0)
+    nodes: int = 0
+    lp_iterations: int = 0
+    cut_rounds: int = 0
+    cuts: int = 0
+    incumbents: int = 0
+    pruned: int = 0
+    node_start_misses: int = 0
     # span name -> (entries, host seconds); empty while no profiler records
     spans: Dict[str, Tuple[int, float]] = field(default_factory=dict)
 
@@ -153,16 +169,24 @@ def recent() -> collections.deque:
 def recording(call: str):
     """Open the record of an entry point's solve (``call``) on this thread:
     spans and :func:`count` add to it until the block ends.  The caller fills
-    its other fields and emits it."""
-    rec = SolveMetrics(call=call, solve_id=next(_IDS))
+    its other fields and emits it.  A record opened inside another names it
+    as its ``parent``."""
     stack = _OPEN.records
+    rec = SolveMetrics(call=call, solve_id=next(_IDS),
+                       parent=stack[-1].solve_id if stack else 0)
     stack.append(rec)
     try:
         yield rec
     finally:
         stack.pop()
+        _OPEN.closed = rec
         for k, (n, ns) in list(rec.spans.items()):  # in place: copies share the dict
             rec.spans[k] = (n, ns * 1e-9)
+
+
+def last_closed() -> Optional[SolveMetrics]:
+    """The record whose :func:`recording` block this thread left last."""
+    return _OPEN.closed
 
 
 def count(**counters: int) -> None:

@@ -22,7 +22,7 @@ from relp_tpu.utils.config import SolverConfig as JaxConfig
 from relp_tpu_torch.model import elements as el
 from relp_tpu_torch.model.computational_form import build_computational_form
 from relp_tpu_torch.model.general_form import GeneralForm, Variable
-from relp_tpu_torch.models.branch_bound import MipResult, _gomory_cuts, solve_mip
+from relp_tpu_torch.models.branch_bound import CUT_ROOM, MipResult, _gomory_cuts, solve_mip
 from relp_tpu_torch.providers.variable import FeasibilityLogic, fractional_mask
 from relp_tpu_torch.simplex import status as st
 from relp_tpu_torch.simplex.core import solve_core
@@ -74,11 +74,24 @@ def CV(name, cost, upper):
     return dict(name=name, cost=cost, lower=0.0, upper=upper)
 
 
+def cut_room_shapes(spec, opts, cut_rounds=4):
+    """The port's padded shapes of a MIP: its computational form with room
+    for ``CUT_ROOM`` cuts a round, rounded up to the alignments."""
+    cf = build_computational_form(_mip(PORT, *spec), scale=False)
+    cfg = SolverConfig(**opts)
+    room = CUT_ROOM * max(0, cut_rounds)
+    return _round_up(cf.m + room, cfg.row_align), _round_up(cf.n + room, cfg.col_align)
+
+
 def both(spec, opts=None, same_values=True, **kw):
     """Solve one MIP in both packages and hold the port to the JAX result
-    (``same_values=False`` where the optimum is not unique)."""
+    (``same_values=False`` where the optimum is not unique).  The port pads
+    with room for its cut rounds; the JAX package gets the same shapes,
+    its alignments set to them (``round_up(m, m_pad) = m_pad``)."""
     opts = opts or {}
-    rj = jax_solve_mip(_mip(JAX, *spec), JaxConfig(bucket_shapes=False, **opts), **kw)
+    m_pad, n_pad = cut_room_shapes(spec, opts, kw.get("cut_rounds", 4))
+    rj = jax_solve_mip(_mip(JAX, *spec), JaxConfig(bucket_shapes=False, row_align=m_pad,
+                                                   col_align=n_pad, **opts), **kw)
     rt = solve_mip(_mip(PORT, *spec), SolverConfig(**opts), device="cpu", **kw)
     assert isinstance(rt, MipResult) and rt.kind.value == rj.kind.value
     if rj.objective is not None:
@@ -241,3 +254,75 @@ def test_pseudo_cost_branching_matches_fractional():
     res_f = both(spec, {"mip_branch": "fractional"})
     assert res_p.is_optimal and res_f.is_optimal
     assert res_p.objective == pytest.approx(res_f.objective, abs=1e-6)
+
+
+# every MIP of this file, for the checks that hold on each
+def _pseudo_spec():
+    rng = np.random.default_rng(11)
+    n = 12
+    w = rng.integers(3, 17, n).astype(float)
+    p = (w + rng.integers(1, 6, n)).astype(float)
+    w2 = rng.integers(1, 9, n).astype(float)
+    return ([list(w), list(w2)], ["<=", "<="], [float(w.sum() * 0.4), 30.0],
+            [IV(f"x{i}", float(p[i]), upper=3.0) for i in range(n)], MAX)
+
+
+SPECS = {
+    "knapsack": KNAPSACK,
+    "general_int": GENERAL_INT,
+    "rounding": ([[1, 2], [2, 1]], [">=", ">="], [5, 5],
+                 [IV("x", 1, upper=10), IV("y", 1, upper=10)]),
+    "infeasible": ([[1, 1]], ["=="], [0.5], [IV("x", 1), IV("y", 1)]),
+    "mixed": ([[1, 1]], ["<="], [4], [CV("x", -1.0, 3.7), IV("y", -10.0, upper=2.0)]),
+    "pure_lp": ([[1, 1]], ["<="], [4], [CV("x", -1.0, 3.0), CV("y", -2.0, 3.0)]),
+    "gomory_closes": ([[2, 2]], ["<="], [3], [IV("x", 1), IV("y", 1)], MAX),
+    "pseudo": _pseudo_spec(),
+}
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+@pytest.mark.parametrize("rounds", [0, 4])
+def test_the_dual_root_agrees_with_the_primal_root(name, rounds):
+    """algorithm="dual" solves the root by the device dual from the driver's
+    cold start; the search ends with the same status and objective as under
+    the primal root."""
+    spec = SPECS[name]
+    rp = solve_mip(_mip(PORT, *spec), SolverConfig(), device="cpu", cut_rounds=rounds)
+    rd = solve_mip(_mip(PORT, *spec), SolverConfig(algorithm="dual"), device="cpu",
+                   cut_rounds=rounds)
+    assert rd.kind is rp.kind
+    if rp.objective is not None:
+        assert rd.objective == pytest.approx(rp.objective, rel=OBJ_REL, abs=OBJ_REL)
+
+
+@pytest.mark.parametrize("name", [k for k in SPECS if k not in ("infeasible", "pure_lp")])
+def test_device_cuts_equal_the_host_derivation(name):
+    """The cuts ``solve_mip`` derives from tableau rows computed by one LU of
+    the basis on the device equal those of SciPy's LU on the host, at the
+    shapes with room for the cuts, to 1e-12."""
+    from relp_tpu_torch.models.branch_bound import device_tableau_rows
+    from relp_tpu_torch.ops.amatrix import DenseMatrix
+
+    spec = SPECS[name]
+    config = dataclasses.replace(DEFAULT_CONFIG, scale=False, presolve=False)
+    cf = build_computational_form(_mip(PORT, *spec), scale=False)
+    m_pad, n_pad = cut_room_shapes(spec, {})
+    A = np.zeros((m_pad, n_pad))
+    A[: cf.m, : cf.n] = sp.csc_matrix(cf.A).toarray()
+    b, c, lb, ub = np.zeros(m_pad), np.zeros(n_pad), np.zeros(n_pad), np.zeros(n_pad)
+    b[: cf.m], c[: cf.n], lb[: cf.n], ub[: cf.n] = cf.b, cf.c, cf.lb, cf.ub
+    root = solve_core(*(torch.tensor(v) for v in (A, b, c, lb, ub)), config,
+                      config.resolve_max_iter(m_pad, n_pad))
+    assert int(root.status) == st.OPTIMAL
+    integer_mask = np.zeros(n_pad, bool)
+    integer_mask[: len(spec[3])] = [v.get("kind") == "INTEGER" for v in spec[3]]
+    args = (A, root.x.numpy(), root.basis.numpy(), root.vstat.numpy(), root.art_sign.numpy(),
+            integer_mask, lb, ub, cf.n, 16)
+    A_op = DenseMatrix(torch.tensor(A))
+    gammas, deltas = _gomory_cuts(*args)
+    gammas_d, deltas_d = _gomory_cuts(*args, tableau_rows=lambda rows: device_tableau_rows(
+        A_op, root.basis, root.art_sign, rows))
+    assert len(gammas_d) == len(gammas)
+    if gammas:
+        np.testing.assert_allclose(np.array(gammas_d), np.array(gammas), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(deltas_d, deltas, rtol=0, atol=1e-12)

@@ -1,6 +1,7 @@
 """``reoptimize_with_bounds`` of the port against the JAX package's, on the
 CPU: the three rungs of its ladder (the dual from the prior basis, the warm
-primal, the cold primal), and a prior solve carried from one package into the
+primal, the cold primal), the dual's INFEASIBLE taken as the answer under
+``trust_infeasible``, and a prior solve carried from one package into the
 other through ``relp_tpu_torch.interop``.  Status equal, objective within 1e-9
 relative."""
 
@@ -21,6 +22,7 @@ from relp_tpu_torch.simplex import reoptimize as torch_reoptimize_module
 from relp_tpu_torch.simplex.core import solve_core
 from relp_tpu_torch.simplex.reoptimize import _repair_statuses, reoptimize_with_bounds
 from relp_tpu_torch.utils.config import SolverConfig
+from relp_tpu_torch.utils.metrics import last_closed
 from tests.test_torch_dual import problem
 
 OBJ_REL = 1e-9
@@ -87,6 +89,21 @@ def test_second_rung_the_warm_primal_decides_what_the_dual_cannot(monkeypatch):
     out_t = reoptimize_with_bounds(A, b, c, lb, ub2, prior_t, SolverConfig(), device="cpu")
     assert int(out_t.status) == int(out_j.status) == st.INFEASIBLE
     assert calls == ["warm"]
+
+
+def test_a_trusted_infeasible_dual_answers_alone(monkeypatch):
+    # the second rung's bounds: with ``trust_infeasible`` the dual's proof is
+    # the answer, the same verdict as the JAX package's ladder, and the
+    # primal is never called
+    (A, b, c, lb, ub), prior_j, prior_t = _solved_in_both(14)
+    ub2 = np.full(len(ub), 1e-3)
+    out_j = jax_reoptimize(A, b, c, lb, ub2, prior_j, JaxConfig())
+    monkeypatch.setattr(torch_reoptimize_module, "solve_core", None)
+    out_t = reoptimize_with_bounds(A, b, c, lb, ub2, prior_t, SolverConfig(), device="cpu",
+                                   trust_infeasible=True)
+    assert int(out_t.status) == int(out_j.status) == st.INFEASIBLE
+    rec = last_closed()
+    assert rec.call == "reoptimize" and rec.engine == "dual"
 
 
 def test_third_rung_the_cold_primal(monkeypatch):
